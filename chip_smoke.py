@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (nonzero exit) if anything is off:
+
+1. Setup: the card's name and power limit; the three CUDA sources of
+   ``src/repro_torch/kernels/csrc`` built with ``nvcc`` in parallel.
+2. Kernels: each of the four kernels against its plain PyTorch version on
+   the card, at the yi-6b serving shapes (H=32, KVH=4, D=128, page 16),
+   fp32 and int8 pools.  Gather and scatter must match bitwise, attention
+   within rtol = atol = 1e-5 (float32 sums in another order).  A poison
+   check puts NaN in every unmapped page: the attention outputs must stay
+   finite.  Kernel, plain version and, where one PyTorch call computes the
+   same function, that call are timed with CUDA events (median of 25).
+3. Serving, the main path: full-width yi-6b (32 layers, d_model 4096, 32/4
+   heads, vocab 64000; random weights from a seeded torch.Generator)
+   through the port's ``Scheduler``: 8 requests, prompts of 17-300 tokens,
+   32 new tokens each, batch 8, page 16, max_len 512, chunk 32.  First with
+   fp32 pools, then int8 pools in a pool tight enough to force evictions.
+   The token streams must equal ``static_batch_generate`` on the plain path
+   (``impl='ref'``), and every kernel must have launched.  Then an isolated
+   prefill and decode run gives tokens/s and launches per step.
+
+It prints a JSON line with one entry per kernel, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
+GPU, or outside a checkout of the repository, it exits nonzero and prints
+no result.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 0
+N_TIMED = 25
+SLEEP_CYCLES = 4_000_000   # ~2 ms of GPU clock: longer than a kernel call's
+STEP_SLEEP_CYCLES = 100_000_000  # ~50 ms: longer than a decode step's
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+# Serving shapes of the main path.
+BATCH, PAGE, MAX_LEN, CHUNK = 8, 16, 512, 32
+N_REQUESTS, MAX_NEW = 8, 32
+PROMPT_LENS = (17, 300)
+
+# Published peaks (NVIDIA data sheets, dense, at the full power limit):
+# device-memory bytes/s and float32 FLOP/s outside the tensor cores.
+PEAKS = {
+    "H100 PCIe": (2.0e12, 51e12),
+    "H100 NVL": (3.9e12, 60e12),
+    "H100": (3.35e12, 67e12),       # SXM, "NVIDIA H100 80GB HBM3"
+    "H200": (4.8e12, 67e12),
+}
+
+KERNELS = {
+    # wrapper name: (source, TPU kernel it replaces)
+    "indirect_gather": (
+        "src/repro_torch/kernels/csrc/stream_converters.cu",
+        "src/repro/kernels/stream_converters.py:126"),
+    "indirect_scatter": (
+        "src/repro_torch/kernels/csrc/stream_converters.cu",
+        "src/repro/kernels/stream_converters.py:170"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/paged_decode.py:113"),
+    "paged_prefill_attention": (
+        "src/repro_torch/kernels/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_prefill.py:141"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def peaks_for(name: str):
+    for key, peak in PEAKS.items():
+        if key in name:
+            return peak
+    raise SmokeFailure(f"no published peaks on file for {name!r}")
+
+
+def sync_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def time_ms(fn, n: int = N_TIMED, sleep_cycles: int = SLEEP_CYCLES) -> float:
+    """Median device time of one call of ``fn`` over ``n`` runs.
+
+    CUDA events around each call; before each, ``torch.cuda._sleep`` keeps
+    the card busy while the host queues the call, so the events time the
+    device's work and not the host's launch overhead.  A function that
+    synchronizes inside (the plain scatter's boolean indexing) still pays
+    its host time after the sync.
+    """
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def kernel_inputs(rng, dev, quantized, lens):
+    """A yi-6b layer's pools, page table and lengths for 8 sequences."""
+    kvh, d, h = 4, 128, 32
+    n_pages = MAX_LEN // PAGE
+    pool = BATCH * n_pages
+    shape = (pool, PAGE, kvh, d)
+    if quantized:
+        kp = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        vp = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
+        ks = torch.rand(shape[:3], device=dev) * 0.02 + 0.001
+        vs = torch.rand(shape[:3], device=dev) * 0.02 + 0.001
+    else:
+        kp = torch.randn(shape, device=dev)
+        vp = torch.randn(shape, device=dev)
+        ks = vs = None
+    table = torch.tensor(
+        rng.permutation(pool)[: BATCH * n_pages].reshape(BATCH, n_pages),
+        dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return h, kvh, d, kp, vp, ks, vs, table, lengths
+
+
+def poison(kp, vp, ks, vs, table, live_tokens):
+    """NaN into every page that no live token maps."""
+    live = set()
+    for row, n in zip(table.tolist(), live_tokens):
+        live.update(row[: -(-int(n) // PAGE)])
+    dead = torch.tensor([p for p in range(kp.shape[0]) if p not in live],
+                        dtype=torch.long, device=kp.device)
+    if ks is not None:
+        ks = ks.clone().index_fill_(0, dead, float("nan"))
+        vs = vs.clone().index_fill_(0, dead, float("nan"))
+    else:
+        kp = kp.clone().index_fill_(0, dead, float("nan"))
+        vp = vp.clone().index_fill_(0, dead, float("nan"))
+    return kp, vp, ks, vs
+
+
+def check_kernels(ops, dev, lens, bw, flops):
+    """Correctness, poison and timing of the four kernels; returns the
+    per-kernel records (without launches) keyed by wrapper name."""
+    rng = np.random.default_rng(SEED)
+    records = {}
+    sc = lambda ks, vs: {} if ks is None else dict(k_scale=ks, v_scale=vs)
+    for quantized in (False, True):
+        tag = "int8" if quantized else "fp32"
+        h, kvh, d, kp, vp, ks, vs, table, lengths = kernel_inputs(
+            rng, dev, quantized, lens)
+        elem = 1 if quantized else 4
+        pool = kp.shape[0]
+
+        # -- decode: one query per sequence at the serving lengths.
+        q = torch.randn(BATCH, h, d, device=dev)
+        args = (q, kp, vp, table, lengths)
+        run = lambda: ops.paged_decode_attention(*args, **sc(ks, vs))
+        plain = lambda: ops.paged_decode_attention(*args, **sc(ks, vs),
+                                                   impl="ref")
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **TOL),
+                f"paged_decode {tag}: max abs err {err:.3e} over {TOL}")
+        pk = poison(kp, vp, ks, vs, table, lens)
+        out = ops.paged_decode_attention(q, pk[0], pk[1], table, lengths,
+                                         **sc(pk[2], pk[3]))
+        require(bool(torch.isfinite(out).all()),
+                f"paged_decode {tag}: NaN from an unmapped page")
+        live = int(sum(lens))
+        nbytes = (live * kvh * (2 * d * elem + (8 if quantized else 0))
+                  + 2 * q.numel() * 4
+                  + sum(-(-n // PAGE) for n in lens) * 4 + BATCH * 4)
+        nops = 4 * h * d * live
+        records[("paged_decode_attention", tag)] = dict(
+            max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
+            library_ms=None, bytes=nbytes, ops=nops)
+
+        # -- prefill: 8 rows of a 32-token chunk, ragged, one padding row.
+        starts = [0, 32, 64, 96, 128, 160, 256, 288]
+        counts = [32, 32, 17, 32, 5, 32, 32, 0]
+        live_r = [s + c if c else 0 for s, c in zip(starts, counts)]
+        ctx = 1
+        while ctx * PAGE < max(live_r):
+            ctx *= 2
+        qp = torch.randn(BATCH, CHUNK, h, d, device=dev)
+        st = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ct = torch.tensor(counts, dtype=torch.int32, device=dev)
+        ctx_rows = table[:, :ctx].contiguous()
+        args = (qp, kp, vp, ctx_rows, st, ct)
+        run = lambda: ops.paged_prefill_attention(*args, **sc(ks, vs))
+        plain = lambda: ops.paged_prefill_attention(*args, **sc(ks, vs),
+                                                    impl="ref")
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **TOL),
+                f"paged_prefill {tag}: max abs err {err:.3e} over {TOL}")
+        require(not got[ct == 0].any(), f"paged_prefill {tag}: padding row "
+                "not exactly zero")
+        pk = poison(kp, vp, ks, vs, table, live_r)
+        out = ops.paged_prefill_attention(qp, pk[0], pk[1], ctx_rows, st, ct,
+                                          **sc(pk[2], pk[3]))
+        require(bool(torch.isfinite(out).all()),
+                f"paged_prefill {tag}: NaN from an unmapped page")
+        seen = sum(min(s + c + 1, lv) for s, lv in zip(starts, live_r)
+                   if lv for c in range(CHUNK))
+        nbytes = (sum(live_r) * kvh * (2 * d * elem + (8 if quantized else 0))
+                  + 2 * qp.numel() * 4
+                  + sum(-(-lv // PAGE) for lv in live_r) * 4 + 2 * BATCH * 4)
+        nops = 4 * h * d * seen
+        records[("paged_prefill_attention", tag)] = dict(
+            max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
+            library_ms=None, bytes=nbytes, ops=nops)
+
+        # -- gather: the prefill window read, 3 pages for each of 8 rows.
+        flat = kp.view(pool, -1)
+        idx = table[:, :3].reshape(-1).contiguous()
+        run = lambda: ops.indirect_gather(flat, idx)
+        plain = lambda: ops.indirect_gather(flat, idx, impl="ref")
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"indirect_gather {tag}: not bitwise")
+        row = flat.shape[1] * flat.element_size()
+        idx64 = idx.long()
+        records[("indirect_gather", tag)] = dict(
+            max_abs_err=0.0, ms=time_ms(run), plain_ms=time_ms(plain),
+            library_ms=time_ms(lambda: torch.index_select(flat, 0, idx64)),
+            bytes=2 * idx.numel() * row + idx.numel() * 4, ops=0)
+
+        # -- scatter: the decode append, one row per sequence, one dropped.
+        dst = kp.view(pool * PAGE, -1)
+        packed = (torch.randint(-127, 128, (BATCH, dst.shape[1]),
+                                dtype=torch.int8, device=dev) if quantized
+                  else torch.randn(BATCH, dst.shape[1], device=dev))
+        sidx = torch.tensor(rng.permutation(dst.shape[0])[:BATCH],
+                            dtype=torch.int32, device=dev)
+        sidx_drop = sidx.clone()
+        sidx_drop[-1] = dst.shape[0]
+        a, b = dst.clone(), dst.clone()
+        ops.indirect_scatter(a, packed, sidx_drop)
+        ops.indirect_scatter(b, packed, sidx_drop, impl="ref")
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"indirect_scatter {tag}: not bitwise")
+        del a, b
+        run = lambda: ops.indirect_scatter(dst, packed, sidx)
+        plain = lambda: ops.indirect_scatter(dst, packed, sidx, impl="ref")
+        row = dst.shape[1] * dst.element_size()
+        sidx64 = sidx.long()
+        records[("indirect_scatter", tag)] = dict(
+            max_abs_err=0.0, ms=time_ms(run), plain_ms=time_ms(plain),
+            library_ms=time_ms(lambda: dst.index_copy_(0, sidx64, packed)),
+            bytes=2 * BATCH * row + BATCH * 4, ops=0)
+
+    for rec in records.values():
+        t_bytes = rec["bytes"] / bw * 1e3
+        t_ops = rec["ops"] / flops * 1e3
+        rec["bound_ms"] = max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: full-width serving through the scheduler
+# ---------------------------------------------------------------------------
+
+
+def make_prompts(vocab: int):
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, N_REQUESTS)
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def tight_pool(prompts) -> int:
+    """A third of the pages all requests would need at once (and room for
+    the longest): the scheduler must evict and replay to serve them.  With
+    the seeded prompts this pool forces 5 evictions; the run checks >= 1."""
+    need = [-(-(len(p) + MAX_NEW - 1) // PAGE) for p in prompts]
+    return max(max(need) + 1, sum(need) // 3)
+
+
+def serve(serve_mod, cfg, dev, params, kv_dtype, prompts, pool_pages=None):
+    """Scheduler on the kernels vs static batch on the plain path.
+
+    Returns (scheduler outputs, static outputs, scheduler, launch counts
+    of the scheduler run, seconds)."""
+    from repro_torch.kernels import ops
+
+    model = serve_mod.PagedLM(cfg, kv_dtype=kv_dtype, device=dev,
+                              params=params)
+    cache = serve_mod.PagedKVCache.create(
+        cfg, batch=BATCH, max_len=MAX_LEN, page=PAGE, pool_pages=pool_pages,
+        kv_dtype=kv_dtype, device=dev)
+    sched = serve_mod.Scheduler(model, cache, chunk=CHUNK)
+    for i, p in enumerate(prompts):
+        sched.submit(serve_mod.Request(rid=i, prompt=p, max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sched.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    plain = serve_mod.PagedLM(cfg, impl="ref", kv_dtype=kv_dtype, device=dev,
+                              params=params)
+    static = serve_mod.static_batch_generate(
+        plain, serve_mod.PagedKVCache.create(
+            cfg, batch=BATCH, max_len=MAX_LEN, page=PAGE, kv_dtype=kv_dtype,
+            device=dev),
+        prompts, MAX_NEW, chunk=CHUNK)
+    return out, static, sched, launches, seconds
+
+
+def first_divergence(out, static):
+    for rid in sorted(static):
+        a, b = out.get(rid, []), static[rid]
+        for i in range(max(len(a), len(b))):
+            if i >= len(a) or i >= len(b) or a[i] != b[i]:
+                return (f"request {rid} token {i}: scheduler "
+                        f"{a[i] if i < len(a) else None} vs plain "
+                        f"{b[i] if i < len(b) else None}")
+    return None
+
+
+def throughput(serve_mod, cfg, dev, params, prompts):
+    """Isolated prefill of all prompts (rows of 8) and 32 decode steps at
+    batch 8, fp32 pools; tokens/s and kernel launches per step."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.scheduler import build_prefill_rows
+
+    model = serve_mod.PagedLM(cfg, kv_dtype="fp32", device=dev, params=params)
+    cache = serve_mod.PagedKVCache.create(
+        cfg, batch=BATCH, max_len=MAX_LEN, page=PAGE, kv_dtype="fp32",
+        device=dev)
+    for i, p in enumerate(prompts):
+        cache = cache.allocate(i, cache.pages_for(len(p) + MAX_NEW))
+    pos = [0] * len(prompts)
+    steps = []
+    while any(pos[i] < len(p) for i, p in enumerate(prompts)):
+        items = [(p, pos[i], i) for i, p in enumerate(prompts)
+                 if pos[i] < len(p)]
+        steps.append(build_prefill_rows(items, CHUNK, BATCH))
+        for p, s, i in items:
+            pos[i] = min(len(p), s + CHUNK)
+    box = {"cache": cache}
+
+    def prefill_all():
+        c = box["cache"]
+        for toks, counts, slots, starts in steps:
+            logits, c = model.prefill_batch(toks, counts, slots, starts, c)
+        box["cache"] = c
+
+    ops.reset_launch_counts()
+    t_prefill = sync_ms(prefill_all) / 1e3
+    prefill_launches = ops.launch_counts()
+    n_chunks = len(steps)
+    tokens = np.zeros((BATCH,), np.int32)
+    active = np.ones((BATCH,), bool)
+    ops.reset_launch_counts()
+
+    def decode():
+        toks, box["cache"] = model.decode_steps(tokens, box["cache"], active,
+                                                MAX_NEW)
+
+    t_decode = sync_ms(decode) / 1e3
+    decode_launches = ops.launch_counts()
+    # Device time of one decode step with the whole step queued ahead of
+    # the card: what the step costs the GPU.  The rest of the wall-clock
+    # step is the card idle, waiting on the host to launch.
+    feed = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+    act = torch.ones((BATCH,), dtype=torch.bool, device=dev)
+    c = box["cache"]
+    step_device_ms = time_ms(lambda: model._step(feed, c, c.lengths, act),
+                             n=5, sleep_cycles=STEP_SLEEP_CYCLES)
+    step_wall_ms = t_decode * 1e3 / MAX_NEW
+    n_prompt = sum(len(p) for p in prompts)
+    return dict(
+        prefill_tokens=n_prompt, prefill_s=t_prefill,
+        prefill_tokens_per_s=n_prompt / t_prefill,
+        prefill_chunk_steps=n_chunks,
+        launches_per_prefill_step={k: v / n_chunks
+                                   for k, v in prefill_launches.items()},
+        decode_tokens=BATCH * MAX_NEW, decode_s=t_decode,
+        decode_tokens_per_s=BATCH * MAX_NEW / t_decode,
+        launches_per_decode_step={k: v / MAX_NEW
+                                  for k, v in decode_launches.items()},
+        decode_step_wall_ms=step_wall_ms,
+        decode_step_device_ms=step_device_ms,
+        decode_device_idle_share=1.0 - step_device_ms / step_wall_ms,
+    )
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    root = Path(__file__).resolve().parent
+    if not (root / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {root} is not a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch import resolve_device
+    from repro_torch import serve as serve_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build, ops
+
+    # -- phase 1: setup -------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    dev = resolve_device("cuda")
+    name = torch.cuda.get_device_name(0)
+    bw, flops = peaks_for(name)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}; "
+        f"peaks {bw / 1e12} TB/s, {flops / 1e12} fp32 TFLOP/s")
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"built {len(libs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {lib.stem}: {line.strip()}")
+
+    cfg = get_config("yi-6b")
+    prompts = make_prompts(cfg.vocab)
+    lens = [len(p) + MAX_NEW // 2 for p in prompts]
+
+    # -- phase 2: kernels vs plain versions -----------------------------------
+    records = check_kernels(ops, dev, lens, bw, flops)
+    for (kname, tag), rec in sorted(records.items()):
+        log(f"kernel {kname} [{tag}]: " + json.dumps(rec))
+
+    # -- phase 3: the main path, full-width yi-6b -----------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = serve_mod.PagedLM(cfg, generator=gen, kv_dtype="fp32",
+                               device=dev).params
+    weight_gb = sum(t.numel() * 4 for t in params.values()) / 1e9
+    log(f"yi-6b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}; "
+        f"{weight_gb:.2f} GB of fp32 weights; prompts "
+        f"{[len(p) for p in prompts]}")
+    launches = {k: 0 for k in ops.launch_counts()}
+    for kv_dtype in ("fp32", "int8"):
+        pool = tight_pool(prompts) if kv_dtype == "int8" else None
+        out, static, sched, counts, secs = serve(
+            serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
+        for k, v in counts.items():
+            launches[k] += v
+        div = first_divergence(out, static)
+        st = sched.stats
+        log(f"serve {kv_dtype}: pool {sched.cache.total_pages} pages, "
+            f"{st.tokens} tokens in {secs:.3f} s "
+            f"({st.tokens / secs:.1f} tokens/s), {st.n_evictions} evictions, "
+            f"{st.prefill_steps} prefill steps, {st.decode_steps} decode "
+            f"steps; launches {counts}; streams equal to plain path: "
+            f"{div is None}")
+        require(div is None, f"serve {kv_dtype}: first divergence at {div}")
+        require(sorted(out) == list(range(N_REQUESTS))
+                and all(len(t) == MAX_NEW for t in out.values()),
+                f"serve {kv_dtype}: not every request finished")
+        require(all(v > 0 for v in counts.values()),
+                f"serve {kv_dtype}: a kernel never launched: {counts}")
+        if kv_dtype == "int8":
+            require(st.n_evictions >= 1,
+                    "serve int8: the tight pool forced no eviction")
+    tp = throughput(serve_mod, cfg, dev, params, prompts)
+    log(f"throughput fp32 ({smi}): " + json.dumps(tp))
+
+    kernels = []
+    for kname, (source, replaces) in KERNELS.items():
+        rec = records[(kname, "fp32")]
+        err = max(records[(kname, t)]["max_abs_err"] for t in ("fp32", "int8"))
+        kernels.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=launches[kname], max_abs_err=err, ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            max_err=err, kernel_ms=rec["ms"],  # the same, under other names
+        ))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

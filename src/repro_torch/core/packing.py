@@ -1,0 +1,233 @@
+"""Traffic accounting of packed paged-KV streams (numpy copy of
+``repro.core.packing``).
+
+Exact bytes a serving step moves under BASE (packing-oblivious, padded,
+full-width) and PACK (paged, packed) semantics.  The scheduler records one
+:class:`Traffic` per step; the numbers are computed from shapes and
+lengths on the host, so they are the same whichever device runs the step.
+Only the paged-serving functions are copied here; the jnp ``pack_*`` /
+``unpack_*`` helpers of the reference are not needed by the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+__all__ = [
+    "Traffic",
+    "packed_token_bytes",
+    "paged_decode_traffic",
+    "prefill_page_counts",
+    "paged_prefill_traffic",
+    "prefix_share_traffic",
+]
+
+
+@dataclasses.dataclass
+class Traffic:
+    """HBM/bus traffic for one logical transfer, per system.
+
+    ``base_bytes`` counts one full bus/transaction granule per element (the
+    narrow-beat penalty); ``pack_bytes`` counts densely packed lines;
+    ``index_bus_bytes`` is index traffic crossing the core-side bus (zero for
+    PACK, whose indirection is endpoint-side).  ``shared_pages`` counts
+    physical pages this transfer *reused* instead of re-writing (prefix
+    sharing): reuse moves no payload, so those records show
+    ``pack_bytes == 0`` while ``useful_bytes`` stays the full value — the
+    dedup-before-packing multiplier of the irredundant-layout argument.
+    """
+
+    useful_bytes: int
+    base_bytes: int
+    pack_bytes: int
+    index_bus_bytes_base: int
+    index_bus_bytes_pack: int = 0
+    shared_pages: int = 0
+
+    @property
+    def base_efficiency(self) -> float:
+        tot = self.base_bytes + self.index_bus_bytes_base
+        return self.useful_bytes / tot if tot else 1.0
+
+    @property
+    def pack_efficiency(self) -> float:
+        tot = self.pack_bytes + self.index_bus_bytes_pack
+        return self.useful_bytes / tot if tot else 1.0
+
+
+def packed_token_bytes(
+    token_bytes: int, elem_bits: int = 32, scale_bytes_per_token: int = 0
+) -> int:
+    """Per-token bytes PACK actually moves for a KV stream.
+
+    ``token_bytes`` is the *FP32-equivalent* (full-width) per-token
+    footprint; ``elem_bits`` the real element width on the stream.  Narrow
+    elements pack densely, so the payload scales by ``elem_bits / 32`` — the
+    paper's packing-factor argument (``bus / elem`` elements per beat,
+    §II-C/§III-E): 8-bit elements quadruple the FP32 packing factor.
+    ``scale_bytes_per_token`` adds the sideband metadata a quantized pool
+    fetches next to the codes (the per-(token, kv-head) fp32 scales), which
+    is real bandwidth and is charged to PACK like the index fetch is.
+    """
+    return token_bytes * elem_bits // 32 + scale_bytes_per_token
+
+
+def paged_decode_traffic(
+    lengths,
+    page_size: int,
+    pages_per_seq: int,
+    token_bytes: int,
+    index_bytes: int = 4,
+    granule_bytes: int = 32,
+    elem_bits: int = 32,
+    scale_bytes_per_token: int = 0,
+) -> Traffic:
+    """Traffic of one batched paged-KV decode step, BASE vs PACK.
+
+    * **BASE** is the serving system without indirection or packing: a
+      contiguous *full-width* KV cache padded to the maximum sequence
+      length, so every decode step streams ``batch × pages_per_seq ×
+      page_size`` token rows at ``token_bytes`` each regardless of sequence
+      length or element width — the narrow-beat penalty: a narrower element
+      still occupies a full-width slot.  No index traffic.
+    * **PACK** is the paged path: only the mapped pages of each sequence move
+      (whole pages — the packing granule of this stream) at the *packed*
+      width (:func:`packed_token_bytes` — ``elem_bits`` narrow elements
+      packed densely, plus the quantization-scale sideband), and the
+      page-table entries are the indirect-stream index fetch.  The indices
+      are resolved near memory, so they are charged to
+      ``index_bus_bytes_pack`` (the HBM side), never to the core-side bus —
+      but they do lower ``pack_efficiency``, matching the r/(r+1) ceiling
+      argument of §III-E.
+    * ``useful_bytes`` is the exact live KV at the packed width:
+      ``sum(lengths) × packed_token_bytes``.
+
+    ``token_bytes`` is the FP32-equivalent per-token KV footprint across
+    everything a decode step reads (K and V, all layers, all KV heads);
+    ``elem_bits`` is the pool's element width (8 for int8 pools, which
+    quarters PACK bytes and the BASE efficiency alike).
+    """
+    lens = np.asarray(lengths, dtype=np.int64)
+    batch = int(lens.shape[0])
+    packed = packed_token_bytes(token_bytes, elem_bits, scale_bytes_per_token)
+    pages_touched = int(np.sum(-(-lens // page_size)))
+    useful = int(np.sum(lens)) * packed
+    base = batch * pages_per_seq * page_size * token_bytes
+    pack = pages_touched * page_size * packed
+    pack = int(np.ceil(pack / granule_bytes)) * granule_bytes if pack else 0
+    idx = pages_touched * index_bytes
+    idx = int(np.ceil(idx / granule_bytes)) * granule_bytes if idx else 0
+    return Traffic(useful, base, pack, 0, idx)
+
+
+def prefill_page_counts(
+    starts, counts, page_size: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row (context, chunk) page counts of one batched prefill step.
+
+    ``context[r]`` is the leading ``ceil((starts[r]+counts[r])/page)`` table
+    entries the chunk's attention walks; ``chunk[r]`` the pages positions
+    ``starts[r] .. starts[r]+counts[r]-1`` land in (the indirect write).
+    Padding rows (``counts[r] == 0``) touch nothing and count zero pages.
+
+    This is the single source of page math shared by the
+    :func:`paged_prefill_traffic` byte accounting and the
+    :func:`repro.core.streams.prefill_table_streams` descriptors — the same
+    pages the ``paged_prefill_attention`` kernel's index map resolves.
+    """
+    st = np.asarray(starts, dtype=np.int64)
+    ct = np.asarray(counts, dtype=np.int64)
+    live = st + ct
+    ctx = np.where(ct > 0, -(-live // page_size), 0)
+    chunk = np.where(ct > 0, (live - 1) // page_size - st // page_size + 1, 0)
+    return ctx, chunk
+
+
+def paged_prefill_traffic(
+    starts,
+    counts,
+    page_size: int,
+    pages_per_seq: int,
+    token_bytes: int,
+    index_bytes: int = 4,
+    granule_bytes: int = 32,
+    elem_bits: int = 32,
+    scale_bytes_per_token: int = 0,
+) -> Traffic:
+    """Traffic of one batched chunked-prefill step, BASE vs PACK.
+
+    Each sequence writes ``counts[r]`` KV rows at positions ``starts[r]..``
+    and its attention re-reads the context built so far.
+
+    * **BASE** streams the full padded row per sequence for the context read
+      (``pages_per_seq × page_size`` tokens at the full ``token_bytes``
+      width — narrow elements still occupy full-width slots) plus one
+      transaction granule per written row — the packing-oblivious scatter.
+    * **PACK** reads only the pages covering ``starts + counts`` tokens,
+      writes only the pages the chunk touches (whole pages, the stream's
+      packing granule), both at the *packed* width
+      (:func:`packed_token_bytes`: ``elem_bits`` narrow elements packed
+      densely plus the quantization-scale sideband), and fetches the
+      corresponding page-table entries near memory
+      (``index_bus_bytes_pack``).
+    * ``useful_bytes`` is the live context read plus the rows written, at
+      the packed width.
+    """
+    st = np.asarray(starts, dtype=np.int64)
+    ct = np.asarray(counts, dtype=np.int64)
+    live = np.where(ct > 0, st + ct, 0)
+    packed = packed_token_bytes(token_bytes, elem_bits, scale_bytes_per_token)
+    ctx, chunk = prefill_page_counts(starts, counts, page_size)
+    ctx_pages = int(np.sum(ctx))
+    chunk_pages = int(np.sum(chunk))
+    useful = int(np.sum(live) + np.sum(ct)) * packed
+    batch = int(np.count_nonzero(ct))
+    base = (batch * pages_per_seq * page_size * token_bytes
+            + int(np.sum(ct)) * granule_bytes)
+    pack = (ctx_pages + chunk_pages) * page_size * packed
+    pack = int(np.ceil(pack / granule_bytes)) * granule_bytes if pack else 0
+    idx = (ctx_pages + chunk_pages) * index_bytes
+    idx = int(np.ceil(idx / granule_bytes)) * granule_bytes if idx else 0
+    return Traffic(useful, base, pack, 0, idx)
+
+
+def prefix_share_traffic(
+    shared_tokens: int,
+    n_pages: int,
+    page_size: int,
+    token_bytes: int,
+    index_bytes: int = 4,
+    granule_bytes: int = 32,
+    elem_bits: int = 32,
+    scale_bytes_per_token: int = 0,
+) -> Traffic:
+    """Traffic of mapping an already-resident prompt prefix, BASE vs PACK.
+
+    When admission finds ``n_pages`` page-aligned prefix pages already in
+    the pool, the sharing path moves *no KV payload* — it bumps refcounts
+    and fetches the ``n_pages`` page-table entries it repoints (charged to
+    ``index_bus_bytes_pack``, near-memory like every other table fetch).
+
+    * **BASE** is the dedup-oblivious server: it re-prefills the prefix, so
+      it streams ``shared_tokens`` full-width KV writes (one transaction
+      granule per row, the packing-oblivious scatter — the write half of
+      :func:`paged_prefill_traffic`'s BASE, which is exactly the work
+      sharing elides; the context re-reads it also skips are already
+      reflected in the *absent* prefill records).
+    * **PACK** moves only the table fetch: ``pack_bytes == 0``.
+    * ``useful_bytes`` is the prefix KV at the packed width — the bytes the
+      pool now serves without them ever crossing the bus again.
+
+    ``pack_efficiency`` of such a record is ``useful / index`` and typically
+    far exceeds 1: that is the dedup multiplier on top of packing, and why
+    :class:`Traffic` carries ``shared_pages`` so aggregates can report it
+    separately rather than silently inflating the packing ratio.
+    """
+    packed = packed_token_bytes(token_bytes, elem_bits, scale_bytes_per_token)
+    useful = shared_tokens * packed
+    base = shared_tokens * max(token_bytes, granule_bytes)
+    idx = n_pages * index_bytes
+    idx = int(np.ceil(idx / granule_bytes)) * granule_bytes if idx else 0
+    return Traffic(useful, base, 0, 0, idx, shared_pages=n_pages)

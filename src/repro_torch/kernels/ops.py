@@ -1,0 +1,459 @@
+"""Dispatch layer: the serving kernels behind one call each.
+
+The functions keep the names and argument order of ``repro.kernels.ops``.
+Each takes ``impl`` in ``{'cuda', 'ref'}``:
+
+* ``'cuda'`` (default): a tensor on the GPU goes to the hand-written CUDA
+  kernel of ``csrc/`` (built by :mod:`.build` at first use), and the call
+  raises if the kernel cannot run; a tensor on the CPU goes to the kernel's
+  plain PyTorch version in :mod:`.ref`.  There is no fallback from the
+  kernel to the plain version.
+* ``'ref'``: the plain version on any device — the oracle a run on the card
+  is held against.
+
+``paged_kv_append`` and ``paged_kv_write_chunk`` are composed over the two
+converter kernels as in the reference.  They update the pools in place,
+where the JAX engine donates them; the pools are returned all the same so
+the call sites of both packages read alike.
+
+Each of the four kernel wrappers counts its launches in an integer
+attribute, ``launches``, raised by one only where the kernel is launched
+(:func:`launch_counts`, :func:`reset_launch_counts`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Dict, Optional
+
+import torch
+
+from . import ref
+from .build import library
+
+__all__ = [
+    "KERNELS",
+    "indirect_gather",
+    "indirect_scatter",
+    "launch_counts",
+    "paged_decode_attention",
+    "paged_kv_append",
+    "paged_kv_write_chunk",
+    "paged_prefill_attention",
+    "reset_launch_counts",
+]
+
+_IMPLS = ("cuda", "ref")
+
+
+def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    if impl == "ref" or x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {x.device}")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# ctypes plumbing
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+_CONVERTER_ARGS = [_P] * 3 + [_L] * 3 + [_P]
+_SIGNATURES = {  # C entry: (library, argument types)
+    "repro_indirect_gather": ("stream_converters", _CONVERTER_ARGS),
+    "repro_indirect_scatter": ("stream_converters", _CONVERTER_ARGS),
+    "repro_paged_decode": ("paged_decode", [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+    "repro_paged_prefill": ("paged_prefill",
+                            [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _c_function(symbol: str):
+    source, argtypes = _SIGNATURES[symbol]
+    fn = getattr(library(source), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(symbol: str, *args) -> None:
+    """Call a C entry and raise on the ``cudaGetLastError()`` it returns."""
+    err = _c_function(symbol)(*args)
+    if err != 0:
+        describe = library("stream_converters").repro_cuda_error_string
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{symbol} failed: CUDA error {err} "
+            f"({describe(err).decode()})"
+        )
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _int32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    _check(t.device == device, f"index tensor on {t.device}, data on {device}")
+    return t.to(torch.int32).contiguous()
+
+
+def _counted(fn):
+    fn.launches = 0
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Stream converters
+# ---------------------------------------------------------------------------
+
+
+@_counted
+def indirect_gather(src: torch.Tensor, indices: torch.Tensor,
+                    impl: str = "cuda") -> torch.Tensor:
+    """out[k] = src[indices[k]] — packed indirect read.
+
+    ``src`` is ``(n_rows, *row)`` of any dtype; rows are copied as bytes.
+    Indices are clipped to ``[0, n_rows)``.
+    """
+    if not _use_kernel(impl, src):
+        return ref.indirect_gather(src, indices)
+    _check(src.is_contiguous() and src.dim() >= 1 and src.shape[0] > 0,
+           "indirect_gather: src must be a contiguous non-empty tensor")
+    idx = _int32(indices, src.device)
+    _check(idx.dim() == 1, "indirect_gather: indices must be 1-D")
+    out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    row_bytes = src[0].numel() * src.element_size()
+    _launch("repro_indirect_gather", _ptr(src), _ptr(idx), _ptr(out),
+            src.shape[0], idx.shape[0], row_bytes, _stream(src))
+    indirect_gather.launches += 1
+    return out
+
+
+@_counted
+def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
+                     indices: torch.Tensor, impl: str = "cuda"
+                     ) -> torch.Tensor:
+    """dst[indices[k]] = packed[k] — packed indirect write, in place.
+
+    Returns ``dst``.  An index outside ``[0, len(dst))`` drops its row.
+    Duplicate in-range indices have no defined order (the kernel's blocks
+    race); the paged callers never repeat one.
+    """
+    if not _use_kernel(impl, dst):
+        return ref.indirect_scatter(dst, packed, indices)
+    _check(dst.is_contiguous() and dst.dim() >= 1,
+           "indirect_scatter: dst must be contiguous (it is written in place)")
+    _check(packed.device == dst.device and packed.dtype == dst.dtype
+           and tuple(packed.shape[1:]) == tuple(dst.shape[1:]),
+           f"indirect_scatter: packed {tuple(packed.shape)} {packed.dtype} "
+           f"does not match dst rows {tuple(dst.shape)} {dst.dtype}")
+    packed = packed.contiguous()
+    idx = _int32(indices, dst.device)
+    _check(idx.shape == (packed.shape[0],),
+           "indirect_scatter: one index per packed row")
+    row_bytes = packed[0].numel() * packed.element_size() if len(packed) else 0
+    _launch("repro_indirect_scatter", _ptr(dst), _ptr(packed), _ptr(idx),
+            dst.shape[0], packed.shape[0], row_bytes, _stream(dst))
+    indirect_scatter.launches += 1
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# Paged attention
+# ---------------------------------------------------------------------------
+
+
+def _check_pools(k_pages, v_pages, k_scale, v_scale, device) -> bool:
+    """Validate the pool layout the attention kernels take; returns whether
+    the pools are int8 codes with scales."""
+    quantized = k_scale is not None
+    want = torch.int8 if quantized else torch.float32
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _check(t.device == device and t.dim() == 4 and t.is_contiguous()
+               and t.dtype == want,
+               f"{name} must be a contiguous (P, page, KVH, D) {want} pool "
+               f"on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _check(t is not None and t.device == device
+                   and t.dtype == torch.float32 and t.is_contiguous()
+                   and tuple(t.shape) == tuple(k_pages.shape[:3]),
+                   f"{name} must be a contiguous (P, page, KVH) float32 pool")
+    return quantized
+
+
+@_counted
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """Decode one token per sequence against the paged pool.
+
+    q (B, H, D) float32; pools (P, page, KVH, D); page_table (B, n_pages);
+    lengths (B,).  ``k_scale``/``v_scale`` — ``(P, page, KVH)`` fp32 — mark
+    int8 pools; the kernel dequantizes each page after its load, the plain
+    version the whole pool up front (:func:`ref.dequantize_pages`).
+    """
+    if not _use_kernel(impl, q):
+        if k_scale is not None:
+            k_pages = ref.dequantize_pages(k_pages, k_scale)
+            v_pages = ref.dequantize_pages(v_pages, v_scale)
+        return ref.paged_decode_attention(
+            q, k_pages, v_pages, page_table, lengths, scale=scale
+        )
+    _check(q.dtype == torch.float32 and q.dim() == 3,
+           f"q must be (B, H, D) float32, got {tuple(q.shape)} {q.dtype}")
+    q = q.contiguous()
+    b, h, d = q.shape
+    quantized = _check_pools(k_pages, v_pages, k_scale, v_scale, q.device)
+    _, page, kvh, dk = k_pages.shape
+    _check(dk == d and h % kvh == 0,
+           f"q heads {h} x {d} do not group over pool heads {kvh} x {dk}")
+    table = _int32(page_table, q.device)
+    lens = _int32(lengths, q.device)
+    _check(table.dim() == 2 and table.shape[0] == b and lens.shape == (b,),
+           "page_table must be (B, n_pages) and lengths (B,)")
+    out = torch.empty_like(q)
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    _launch("repro_paged_decode", _ptr(q), _ptr(k_pages), _ptr(v_pages),
+            _ptr(k_scale), _ptr(v_scale), _ptr(table), _ptr(lens), _ptr(out),
+            b, h, kvh, d, page, table.shape[1], sc, int(quantized),
+            _stream(q))
+    paged_decode_attention.launches += 1
+    return out
+
+
+@_counted
+def paged_prefill_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    ctx_rows: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """Causal chunk attention for batched prefill, straight from the pool.
+
+    q (R, C, H, D) float32: row r's query c sits at ``starts[r] + c``;
+    ctx_rows (R, ctx_pages) leading page-table entries; starts/counts (R,).
+    Rows with ``counts == 0`` give zeros.  Scale pools as in
+    :func:`paged_decode_attention`.
+    """
+    if not _use_kernel(impl, q):
+        if k_scale is not None:
+            k_pages = ref.dequantize_pages(k_pages, k_scale)
+            v_pages = ref.dequantize_pages(v_pages, v_scale)
+        return ref.paged_prefill_attention(
+            q, k_pages, v_pages, ctx_rows, starts, counts, scale=scale
+        )
+    _check(q.dtype == torch.float32 and q.dim() == 4,
+           f"q must be (R, C, H, D) float32, got {tuple(q.shape)} {q.dtype}")
+    q = q.contiguous()
+    r, c, h, d = q.shape
+    quantized = _check_pools(k_pages, v_pages, k_scale, v_scale, q.device)
+    _, page, kvh, dk = k_pages.shape
+    _check(dk == d and h % kvh == 0,
+           f"q heads {h} x {d} do not group over pool heads {kvh} x {dk}")
+    rows = _int32(ctx_rows, q.device)
+    st = _int32(starts, q.device)
+    ct = _int32(counts, q.device)
+    _check(rows.dim() == 2 and rows.shape[0] == r and st.shape == (r,)
+           and ct.shape == (r,),
+           "ctx_rows must be (R, ctx_pages) and starts/counts (R,)")
+    out = torch.empty_like(q)
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    _launch("repro_paged_prefill", _ptr(q), _ptr(k_pages), _ptr(v_pages),
+            _ptr(k_scale), _ptr(v_scale), _ptr(rows), _ptr(st), _ptr(ct),
+            _ptr(out), r, c, h, kvh, d, page, rows.shape[1], sc,
+            int(quantized), _stream(q))
+    paged_prefill_attention.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paged KV writes, composed over the converters
+# ---------------------------------------------------------------------------
+
+
+def paged_kv_append(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    impl: str = "cuda",
+):
+    """Append one KV token per sequence into the paged pool, in place.
+
+    ``impl='cuda'`` is one indirect scatter per pool over the row-flattened
+    pool; ``impl='ref'`` the full-pool oracle.  Inactive sequences, and
+    appends past the table row, are routed to an out-of-range index and
+    dropped.  With the ``(P, page, KVH)`` scale pools given the rows are
+    quantized on write, codes and scales through the same indices.
+
+    Returns ``(k_pages, v_pages, new_lengths)``, plus ``(k_scale,
+    v_scale)`` when quantizing.
+    """
+    if impl == "ref":
+        return ref.paged_kv_append(
+            k_pages, v_pages, k_new, v_new, page_table, lengths, active,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    p, page, kvh, d = k_pages.shape
+    n_pages = page_table.shape[1]
+    quantized = k_scale is not None
+    if quantized:
+        k_new, k_s = ref.quantize_kv(k_new)
+        v_new, v_s = ref.quantize_kv(v_new)
+    lens = lengths.long()
+    if active is None:
+        active = torch.ones_like(lens, dtype=torch.bool)
+    slot = (lens // page).clamp(0, n_pages - 1)
+    pids = page_table.long().gather(1, slot[:, None])[:, 0]
+    flat_idx = torch.where(
+        active & (lens < n_pages * page), pids * page + lens % page,
+        torch.full_like(pids, p * page),
+    )
+
+    def write(pool, new, width):
+        indirect_scatter(pool.view(p * page, width), new.reshape(-1, width),
+                         flat_idx, impl=impl)
+
+    write(k_pages, k_new, kvh * d)
+    write(v_pages, v_new, kvh * d)
+    new_len = lengths + active.to(lengths.dtype)
+    if quantized:
+        write(k_scale, k_s, kvh)
+        write(v_scale, v_s, kvh)
+        return k_pages, v_pages, new_len, k_scale, v_scale
+    return k_pages, v_pages, new_len
+
+
+def paged_kv_write_chunk(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    rows: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    impl: str = "cuda",
+):
+    """Batched chunked-prefill write, bounded by the pages the chunk touches.
+
+    ``impl='ref'`` is the full-pool oracle.  ``impl='cuda'`` follows the
+    reference's converter path: each sequence's chunk spans at most
+    ``W = ceil(C/page) + 1`` pages, so it gathers those W pages (one
+    indirect read), scatters the chunk's rows into the gathered window, and
+    writes the touched pages back (one indirect write) — R·W pages of
+    traffic, never the whole pool.  Window slots that cover no valid token
+    are routed out of range on the way back, so a stale copy never
+    clobbers another sequence's page.  With scale pools the chunk is
+    quantized on write and the scales take the same window walk.
+
+    Returns ``(k_pages, v_pages)``, plus ``(k_scale, v_scale)`` when
+    quantizing; all are updated in place.
+    """
+    if impl == "ref":
+        return ref.paged_kv_write_chunk(
+            k_pages, v_pages, k_new, v_new, rows, starts, counts,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    p, page, kvh, d = k_pages.shape
+    r, c = k_new.shape[:2]
+    n_pages = rows.shape[1]
+    quantized = k_scale is not None
+    if quantized:
+        k_new, k_s = ref.quantize_kv(k_new)
+        v_new, v_s = ref.quantize_kv(v_new)
+    dev = rows.device
+    st = starts.long()
+    ct = counts.long()
+    w = -(-c // page) + 1
+    p_lo = st // page                                              # (R,)
+    lp = p_lo[:, None] + torch.arange(w, device=dev)               # (R, W)
+    pids = rows.long().gather(1, lp.clamp(0, n_pages - 1))         # (R, W)
+    # A window slot is real iff it covers >= 1 valid token of its sequence.
+    p_hi = (st + (ct - 1).clamp(min=0)) // page
+    real = (lp <= p_hi[:, None]) & (ct[:, None] > 0) & (lp < n_pages)
+    back = torch.where(real, pids, torch.full_like(pids, p)).reshape(-1)
+    # Local scatter index of token (r, c) inside the (R, W, page) window.
+    ar = torch.arange(c, device=dev)
+    pos = st[:, None] + ar                                         # (R, C)
+    valid = ar[None, :] < ct[:, None]
+    wp = pos // page - p_lo[:, None]
+    loc = (torch.arange(r, device=dev)[:, None] * w + wp) * page + pos % page
+    loc = torch.where(valid, loc, torch.full_like(loc, r * w * page))
+    loc = loc.reshape(-1)
+    src = pids.clamp(0, p - 1).reshape(-1)
+
+    def write(pool, new, width):
+        flat = pool.view(p, page * width)
+        win = indirect_gather(flat, src, impl=impl)                # (R*W, ..)
+        indirect_scatter(win.view(r * w * page, width),
+                         new.reshape(-1, width), loc, impl=impl)
+        indirect_scatter(flat, win, back, impl=impl)
+
+    write(k_pages, k_new, kvh * d)
+    write(v_pages, v_new, kvh * d)
+    if quantized:
+        write(k_scale, k_s, kvh)
+        write(v_scale, v_s, kvh)
+        return k_pages, v_pages, k_scale, v_scale
+    return k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Launch counts
+# ---------------------------------------------------------------------------
+
+#: The four kernel wrappers, each with its ``launches`` count.
+KERNELS = (indirect_gather, indirect_scatter, paged_decode_attention,
+           paged_prefill_attention)
+
+
+def launch_counts() -> Dict[str, int]:
+    """``{kernel wrapper name: launches}`` since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

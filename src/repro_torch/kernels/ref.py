@@ -1,0 +1,265 @@
+"""Plain PyTorch versions of the serving kernels (the port's oracles).
+
+Each function states in tensor operations what one CUDA kernel of
+``kernels/csrc`` computes, mirroring the JAX oracle of the same name in
+``repro.kernels.ref``.  The CPU tests hold them against the JAX package;
+``chip_smoke.py`` holds each CUDA kernel against them on the card; and the
+dispatch layer (:mod:`.ops`) runs them for tensors that lie on the CPU.
+
+Unlike the functional JAX oracles, the write functions update their pools
+in place (the JAX engine donates its pools to the same effect) and return
+them, so both packages' call sites read alike.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+__all__ = [
+    "indirect_gather",
+    "indirect_scatter",
+    "paged_decode_attention",
+    "paged_prefill_attention",
+    "paged_kv_append",
+    "paged_kv_write_chunk",
+    "int8_quantize",
+    "quantize_kv",
+    "dequantize_pages",
+]
+
+
+# ---------------------------------------------------------------------------
+# Packed indirect stream converters
+# ---------------------------------------------------------------------------
+
+
+def indirect_gather(src: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """out[k] = src[indices[k]], indices clipped to the rows of ``src``
+    (the reference's ``take(mode='clip')``)."""
+    idx = indices.long().clamp(0, src.shape[0] - 1)
+    return src[idx]
+
+
+def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
+                     indices: torch.Tensor) -> torch.Tensor:
+    """dst[indices[k]] = packed[k], in place; returns ``dst``.
+
+    An index outside ``[0, len(dst))`` drops its row, which is how the
+    callers discard inactive and padding rows.  Duplicate in-range indices
+    have no defined order; the paged callers never repeat one.
+    """
+    idx = indices.long()
+    keep = (idx >= 0) & (idx < dst.shape[0])
+    dst[idx[keep]] = packed[keep]
+    return dst
+
+
+# ---------------------------------------------------------------------------
+# Paged attention
+# ---------------------------------------------------------------------------
+
+
+def _scale(d: int, scale: Optional[float]) -> float:
+    return scale if scale is not None else 1.0 / math.sqrt(d)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention over a paged KV cache (``repro.kernels.ref``
+    ``paged_decode_attention``).
+
+    q (B, H, D); k/v_pages (P, page, KVH, D) float; page_table
+    (B, pages_per_seq) int32 physical page ids; lengths (B,) live tokens.
+    A sequence of length 0 gives exact zeros.
+    """
+    b, h, d = q.shape
+    pages_per_seq = page_table.shape[1]
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    skv = pages_per_seq * page
+    table = page_table.long()
+    kg = k_pages[table].reshape(b, skv, kvh, d).transpose(1, 2)
+    vg = v_pages[table].reshape(b, skv, kvh, d).transpose(1, 2)
+    rep = h // kvh
+    kg = kg.repeat_interleave(rep, dim=1)
+    vg = vg.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhd,bhkd->bhk", q, kg).float() * _scale(d, scale)
+    pos = torch.arange(skv, device=q.device)
+    mask = pos[None, :] < lengths.long()[:, None]
+    logits = logits.masked_fill(~mask[:, None, :], float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    w = torch.nan_to_num(w, nan=0.0)
+    return torch.einsum("bhk,bhkd->bhd", w, vg.float()).to(q.dtype)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    ctx_rows: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal chunk attention over a paged KV pool (``repro.kernels.ref``
+    ``paged_prefill_attention``).
+
+    q (R, C, H, D): row r's query ``c`` sits at ``starts[r] + c`` and sees
+    positions ``0 .. starts[r] + c``, capped at ``starts[r] + counts[r]``.
+    ctx_rows (R, ctx_pages) leading page-table entries; starts/counts (R,).
+    The mask uses a finite sentinel (the float32 minimum) and zeroes masked
+    weights, so rows with ``counts == 0`` give exact zeros, never NaN.
+    """
+    r, c, h, d = q.shape
+    page, kvh = k_pages.shape[1], k_pages.shape[2]
+    ctx_pages = ctx_rows.shape[1]
+    skv = ctx_pages * page
+    flat = ctx_rows.reshape(-1).long()
+    kg = k_pages[flat].reshape(r, skv, kvh, d)
+    vg = v_pages[flat].reshape(r, skv, kvh, d)
+    rep = h // kvh
+    kg = kg.repeat_interleave(rep, dim=2)                   # (R, S, H, D)
+    vg = vg.repeat_interleave(rep, dim=2)
+    starts = starts.long()
+    counts = counts.long()
+    pos = starts[:, None] + torch.arange(c, device=q.device)   # (R, C)
+    kv_pos = torch.arange(skv, device=q.device)
+    live = torch.where(counts > 0, starts + counts, torch.zeros_like(counts))
+    mask = (kv_pos[None, None, :] <= pos[:, :, None]) & (
+        kv_pos[None, None, :] < live[:, None, None]
+    )                                                       # (R, C, S)
+    s = torch.einsum("rchd,rshd->rchs", q, kg).float() * _scale(d, scale)
+    s = s.masked_fill(~mask[:, :, None, :], torch.finfo(s.dtype).min)
+    w = torch.softmax(s, dim=-1)
+    w = w.masked_fill(~mask[:, :, None, :], 0.0)
+    out = torch.einsum("rchs,rshd->rchd", w, vg.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV writes (full-pool oracles; ops.py composes the converters)
+# ---------------------------------------------------------------------------
+
+
+def paged_kv_append(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    active: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """Append one KV token per sequence into the paged pool, in place.
+
+    Sequence ``b`` writes its row to ``(page_table[b, len_b // page],
+    len_b % page)``.  Inactive sequences, and appends that fall past the
+    table row, write nothing; inactive ones keep their length.  With the
+    ``(P, page, KVH)`` scale pools given, rows are quantized on write
+    (:func:`quantize_kv`): codes into the pages, scales into the scale
+    pools at the same slots.
+
+    Returns ``(k_pages, v_pages, new_lengths)``, plus ``(k_scale,
+    v_scale)`` when quantizing.
+    """
+    p, page, kvh, d = k_pages.shape
+    n_pages = page_table.shape[1]
+    quantized = k_scale is not None
+    if quantized:
+        k_new, k_s = quantize_kv(k_new)
+        v_new, v_s = quantize_kv(v_new)
+    lens = lengths.long()
+    if active is None:
+        active = torch.ones_like(lens, dtype=torch.bool)
+    keep = active & (lens < n_pages * page)
+    slot = (lens // page).clamp(0, n_pages - 1)
+    pids = page_table.long().gather(1, slot[:, None])[:, 0]
+    flat = (pids * page + lens % page)[keep]
+    k_pages.view(p * page, kvh, d)[flat] = k_new[keep]
+    v_pages.view(p * page, kvh, d)[flat] = v_new[keep]
+    new_len = lengths + active.to(lengths.dtype)
+    if quantized:
+        k_scale.view(p * page, kvh)[flat] = k_s[keep]
+        v_scale.view(p * page, kvh)[flat] = v_s[keep]
+        return k_pages, v_pages, new_len, k_scale, v_scale
+    return k_pages, v_pages, new_len
+
+
+def paged_kv_write_chunk(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    rows: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """Write one prefill chunk per sequence into the paged pool, in place.
+
+    Sequence ``r`` writes its ``counts[r]`` leading rows of ``k_new[r]`` /
+    ``v_new[r]`` (each ``(C, KVH, D)``) at positions ``starts[r] + c``
+    through its page-table row ``rows[r]``; rows with ``counts == 0`` write
+    nothing.  Quantizes on write when the scale pools are given.  Returns
+    ``(k_pages, v_pages)``, plus ``(k_scale, v_scale)`` when quantizing.
+    """
+    p, page, kvh, d = k_pages.shape
+    r, c = k_new.shape[:2]
+    n_pages = rows.shape[1]
+    quantized = k_scale is not None
+    if quantized:
+        k_new, k_s = quantize_kv(k_new)
+        v_new, v_s = quantize_kv(v_new)
+    ar = torch.arange(c, device=rows.device)
+    pos = starts.long()[:, None] + ar                          # (R, C)
+    valid = (ar[None, :] < counts.long()[:, None]).reshape(-1)
+    pids = rows.long().gather(1, (pos // page).clamp(0, n_pages - 1))
+    flat = (pids * page + pos % page).reshape(-1)[valid]
+    k_pages.view(p * page, kvh, d)[flat] = k_new.reshape(-1, kvh, d)[valid]
+    v_pages.view(p * page, kvh, d)[flat] = v_new.reshape(-1, kvh, d)[valid]
+    if quantized:
+        k_scale.view(p * page, kvh)[flat] = k_s.reshape(-1, kvh)[valid]
+        v_scale.view(p * page, kvh)[flat] = v_s.reshape(-1, kvh)[valid]
+        return k_pages, v_pages, k_scale, v_scale
+    return k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Int8 KV quantization
+# ---------------------------------------------------------------------------
+
+
+def int8_quantize(x: torch.Tensor, dim: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slice int8 quantization: returns (codes, scale)."""
+    amax = x.abs().amax(dim=dim, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).float()
+    q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, kv-head) int8 quantization of new KV rows.
+
+    ``x`` is ``(..., KVH, D)``; returns the int8 codes (same shape) and the
+    fp32 scales ``(..., KVH)`` — the scale-pool layout.
+    """
+    q, scale = int8_quantize(x, dim=-1)
+    return q, scale[..., 0]
+
+
+def dequantize_pages(pages: torch.Tensor, scale: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(..., page, KVH, D)`` int8 codes times their ``(..., page, KVH)``
+    fp32 scales — the one broadcast rule the kernels apply after a load."""
+    return (pages.float() * scale[..., None]).to(dtype)
