@@ -9,21 +9,37 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
 
 1. Setup: the card's name and power limit; the three CUDA sources of
    ``src/repro_torch/kernels/csrc`` built with ``nvcc`` in parallel.
-2. Kernels: each of the four kernels against its plain PyTorch version on
-   the card, at the yi-6b serving shapes (H=32, KVH=4, D=128, page 16),
-   fp32 and int8 pools.  Gather and scatter must match bitwise, attention
-   within rtol = atol = 1e-5 (float32 sums in another order).  A poison
-   check puts NaN in every unmapped page: the attention outputs must stay
-   finite.  Kernel, plain version and, where one PyTorch call computes the
-   same function, that call are timed with CUDA events (median of 25).
-3. Serving, the main path: full-width yi-6b (32 layers, d_model 4096, 32/4
-   heads, vocab 64000; random weights from a seeded torch.Generator)
-   through the port's ``Scheduler``: 8 requests, prompts of 17-300 tokens,
-   32 new tokens each, batch 8, page 16, max_len 512, chunk 32.  First with
-   fp32 pools, then int8 pools in a pool tight enough to force evictions.
-   The token streams must equal ``static_batch_generate`` on the plain path
-   (``impl='ref'``), and every kernel must have launched.  Then an isolated
-   prefill and decode run gives tokens/s and launches per step.
+2. Kernels: each of the seven kernels against its plain PyTorch version
+   on the card.  The paged ones at the yi-6b serving shapes (H=32, KVH=4,
+   D=128, page 16, batch 8; verify with K=4 queries per sequence), fp32
+   and int8 pools; the strided converters at the rwkv6-3b and Mamba
+   (yi-6b width) state-pool shapes, fp32 and bf16 rows, plus odd row
+   widths.  Data movement must match bitwise, attention within rtol = atol
+   = 1e-5 (float32 sums in another order).  A poison check puts NaN in
+   every unmapped page: the attention outputs must stay finite.  Kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call are timed with CUDA events (median of 25).
+3. Paged serving: full-width yi-6b (32 layers, d_model 4096, 32/4 heads,
+   vocab 64000; random weights from a seeded torch.Generator) through the
+   port's ``Scheduler``: 8 requests, prompts of 17-300 tokens, 32 new
+   tokens each, batch 8, page 16, max_len 512, chunk 32.  First with fp32
+   pools, then int8 pools in a pool tight enough to force evictions.  The
+   token streams must equal ``static_batch_generate`` on the plain path
+   (``impl='ref'``), and every kernel of the path must have launched.
+   Then an isolated prefill and decode run gives tokens/s and launches per
+   step.
+4. Speculative serving: the same model, prompts and pools with
+   ``spec_k = 4`` and an ``NGramDrafter``: the tokens must equal plain
+   greedy (phase 3's ``static_batch_generate``), verify must have
+   launched, and the int8 run must evict.
+5. Recurrent serving: rwkv6-3b at full width (32 layers, d_model 2560,
+   40 WKV heads, d_ff 8960, vocab 65536) and the Mamba block at yi-6b
+   width, bf16 activations, random weights from a seeded generator,
+   through the ``Scheduler`` with batch 8, the same 8 prompts and 32 new
+   tokens.  The output must equal ``recurrent_reference_generate``
+   bitwise; every admission zeroes its slot through the strided scatter,
+   and a live slot read back through ``recurrent_state_read`` (the strided
+   gather) must equal the pool's own view of it.
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -43,6 +59,7 @@ import numpy as np
 import torch
 
 SEED = 0
+SPEC_K = 4
 N_TIMED = 25
 SLEEP_CYCLES = 4_000_000   # ~2 ms of GPU clock: longer than a kernel call's
 STEP_SLEEP_CYCLES = 100_000_000  # ~50 ms: longer than a decode step's
@@ -76,7 +93,20 @@ KERNELS = {
     "paged_prefill_attention": (
         "src/repro_torch/kernels/csrc/paged_prefill.cu",
         "src/repro/kernels/paged_prefill.py:141"),
+    "paged_verify": (
+        "src/repro_torch/kernels/csrc/paged_prefill.cu",
+        "src/repro/kernels/paged_verify.py:39"),
+    "strided_gather": (
+        "src/repro_torch/kernels/csrc/stream_converters.cu",
+        "src/repro/kernels/stream_converters.py:52"),
+    "strided_scatter": (
+        "src/repro_torch/kernels/csrc/stream_converters.cu",
+        "src/repro/kernels/stream_converters.py:91"),
 }
+#: The record of each kernel that the JSON line reports: the paged ones at
+#: fp32, the strided ones at their widest burst (rwkv6-3b's wkv state).
+REPORTED = {name: "fp32" for name in KERNELS}
+REPORTED.update(strided_gather="rwkv6-3b s", strided_scatter="rwkv6-3b s")
 
 
 class SmokeFailure(RuntimeError):
@@ -107,14 +137,17 @@ def sync_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def time_ms(fn, n: int = N_TIMED, sleep_cycles: int = SLEEP_CYCLES) -> float:
+def time_ms(fn, n: int = N_TIMED, sleep_cycles: int = SLEEP_CYCLES,
+            flush=None) -> float:
     """Median device time of one call of ``fn`` over ``n`` runs.
 
     CUDA events around each call; before each, ``torch.cuda._sleep`` keeps
     the card busy while the host queues the call, so the events time the
     device's work and not the host's launch overhead.  A function that
     synchronizes inside (the plain scatter's boolean indexing) still pays
-    its host time after the sync.
+    its host time after the sync.  ``flush`` (a tensor larger than the L2
+    cache) is overwritten before each call, so the call finds its data in
+    device memory, as a caller that touched other data in between would.
     """
     for _ in range(3):
         fn()
@@ -122,6 +155,8 @@ def time_ms(fn, n: int = N_TIMED, sleep_cycles: int = SLEEP_CYCLES) -> float:
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush.zero_()
         torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
@@ -129,6 +164,41 @@ def time_ms(fn, n: int = N_TIMED, sleep_cycles: int = SLEEP_CYCLES) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profile_step(fn, top: int = 6):
+    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``:
+    the summed kernel time, the number of kernels run, and the ``top``
+    kernels by time.  A step of more than ~1,000 launches fills the
+    card's launch queue, so the host blocks inside a queued-ahead run and
+    event timing (as :func:`throughput` uses for the paged decode step)
+    overstates its device time; the profiler's sum does not.
+    Returns ``None`` where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as err:  # noqa: BLE001 — a measurement, not a check
+        log(f"profiler: not measured ({err})")
+        return None
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    if not rows:
+        return None
+    rows.sort(reverse=True)
+    return dict(
+        busy_ms=sum(r[0] for r in rows) / 1e3,
+        kernels=sum(r[1] for r in rows),
+        top=[dict(name=k[:60], ms=us / 1e3, count=c)
+             for us, c, k in rows[:top]])
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +319,40 @@ def check_kernels(ops, dev, lens, bw, flops):
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes, ops=nops)
 
+        # -- verify: K queries per sequence at the serving lengths, one row
+        #    clamped to 2 scored tokens and one padding row.
+        vcounts = [SPEC_K] * (BATCH - 2) + [2, 0]
+        vlive = [n + c if c else 0 for n, c in zip(lens, vcounts)]
+        ctx = 1
+        while ctx * PAGE < max(vlive):
+            ctx *= 2
+        qv = torch.randn(BATCH, SPEC_K, h, d, device=dev)
+        vc = torch.tensor(vcounts, dtype=torch.int32, device=dev)
+        ctx_rows = table[:, :ctx].contiguous()
+        args = (qv, kp, vp, ctx_rows, lengths, vc)
+        run = lambda: ops.paged_verify(*args, **sc(ks, vs))
+        plain = lambda: ops.paged_verify(*args, **sc(ks, vs), impl="ref")
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **TOL),
+                f"paged_verify {tag}: max abs err {err:.3e} over {TOL}")
+        require(not got[vc == 0].any(), f"paged_verify {tag}: padding row "
+                "not exactly zero")
+        pk = poison(kp, vp, ks, vs, table, vlive)
+        out = ops.paged_verify(qv, pk[0], pk[1], ctx_rows, lengths, vc,
+                               **sc(pk[2], pk[3]))
+        require(bool(torch.isfinite(out).all()),
+                f"paged_verify {tag}: NaN from an unmapped page")
+        seen = sum(n + i + 1 for n, c in zip(lens, vcounts)
+                   for i in range(c))
+        nbytes = (sum(vlive) * kvh * (2 * d * elem + (8 if quantized else 0))
+                  + 2 * qv.numel() * 4
+                  + sum(-(-lv // PAGE) for lv in vlive) * 4 + 2 * BATCH * 4)
+        records[("paged_verify", tag)] = dict(
+            max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
+            library_ms=None, bytes=nbytes, ops=4 * h * d * seen)
+
         # -- gather: the prefill window read, 3 pages for each of 8 rows.
         flat = kp.view(pool, -1)
         idx = table[:, :3].reshape(-1).contiguous()
@@ -288,11 +392,92 @@ def check_kernels(ops, dev, lens, bw, flops):
             library_ms=time_ms(lambda: dst.index_copy_(0, sidx64, packed)),
             bytes=2 * BATCH * row + BATCH * 4, ops=0)
 
+    records.update(check_strided(ops, dev))
     for rec in records.values():
         t_bytes = rec["bytes"] / bw * 1e3
         t_ops = rec["ops"] / flops * 1e3
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return records
+
+
+def state_pools():
+    """``{tag: ((L, B, *row), dtype)}``: the recurrent state pools of the
+    serving phase, from the port's own state layouts at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba, rwkv6
+
+    out = {}
+    for label, cfg, specs in (
+            ("rwkv6-3b", get_config("rwkv6-3b"), rwkv6.rwkv_state_specs),
+            ("mamba", get_config("yi-6b"), mamba.mamba_state_specs)):
+        for name, (row, dtype) in specs(cfg).items():
+            out[f"{label} {name}"] = ((cfg.n_layers, BATCH) + row, dtype)
+    return out
+
+
+def check_strided(ops, dev):
+    """The strided converters against their plain versions: bitwise at
+    the recurrent state-pool shapes (slot 3 of 8) and at odd row widths
+    (16-, 4- and 1-byte copy units), timed at the pool shapes."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for rows, width, dtype in ((64, 37, torch.int8), (64, 3, torch.bfloat16),
+                               (64, 5, torch.float32), (40, 384, torch.int8)):
+        src = torch.randint(-100, 100, (rows, width), generator=gen,
+                            device=dev).to(dtype)
+        packed = torch.randint(-100, 100, (rows // 4, width), generator=gen,
+                               device=dev).to(dtype)
+        for base, stride in ((1, 3), (2, 4), (5, 0)):
+            count = rows // 4
+            require(torch.equal(
+                ops.strided_gather(src, base, stride, count),
+                ops.strided_gather(src, base, stride, count, impl="ref")),
+                f"strided_gather {tuple(src.shape)} {dtype}: not bitwise")
+            if stride:
+                a = ops.strided_scatter(src.clone(), packed, base, stride)
+                b = ops.strided_scatter(src.clone(), packed, base, stride,
+                                        impl="ref")
+                require(torch.equal(a, b), f"strided_scatter "
+                        f"{tuple(src.shape)} {dtype}: not bitwise")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    records = {}
+    slot = 3
+    for tag, (shape, dtype) in state_pools().items():
+        l, b = shape[:2]
+        pool = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        flat = pool.view(l * b, -1)
+        value = torch.randn((l,) + shape[2:], generator=gen,
+                            device=dev).to(dtype)
+        packed = value.view(l, -1)
+        got = ops.strided_gather(flat, slot, b, l)
+        require(torch.equal(got, ops.strided_gather(flat, slot, b, l,
+                                                    impl="ref")),
+                f"strided_gather {tag}: not bitwise")
+        a = ops.strided_scatter(flat.clone(), packed, slot, b)
+        want = ops.strided_scatter(flat.clone(), packed, slot, b, impl="ref")
+        torch.cuda.synchronize()
+        require(torch.equal(a, want), f"strided_scatter {tag}: not bitwise")
+        del a, want
+        row = flat.shape[1] * flat.element_size()
+        nbytes = 2 * l * row
+        records[("strided_gather", tag)] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: ops.strided_gather(flat, slot, b, l),
+                       flush=flush),
+            plain_ms=time_ms(lambda: ops.strided_gather(
+                flat, slot, b, l, impl="ref"), flush=flush),
+            library_ms=time_ms(lambda: pool[:, slot].clone(), flush=flush),
+            bytes=nbytes, ops=0)
+        records[("strided_scatter", tag)] = dict(
+            max_abs_err=0.0,
+            ms=time_ms(lambda: ops.strided_scatter(flat, packed, slot, b),
+                       flush=flush),
+            plain_ms=time_ms(lambda: ops.strided_scatter(
+                flat, packed, slot, b, impl="ref"), flush=flush),
+            library_ms=time_ms(lambda: pool[:, slot].copy_(value),
+                               flush=flush),
+            bytes=nbytes, ops=0)
+        del pool, flat, value, packed
     return records
 
 
@@ -427,6 +612,90 @@ def throughput(serve_mod, cfg, dev, params, prompts):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: speculative serving
+# ---------------------------------------------------------------------------
+
+
+def serve_spec(serve_mod, cfg, dev, params, kv_dtype, prompts,
+               pool_pages=None):
+    """The scheduler with ``spec_k = SPEC_K`` and an n-gram drafter on the
+    kernels.  Returns (outputs, scheduler, launch counts, seconds)."""
+    from repro_torch.kernels import ops
+
+    model = serve_mod.PagedLM(cfg, kv_dtype=kv_dtype, device=dev,
+                              params=params, spec_k=SPEC_K,
+                              drafter=serve_mod.NGramDrafter(cfg.vocab))
+    cache = serve_mod.PagedKVCache.create(
+        cfg, batch=BATCH, max_len=MAX_LEN, page=PAGE, pool_pages=pool_pages,
+        kv_dtype=kv_dtype, device=dev)
+    sched = serve_mod.Scheduler(model, cache, chunk=CHUNK)
+    for i, p in enumerate(prompts):
+        sched.submit(serve_mod.Request(rid=i, prompt=p, max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sched.run()
+    torch.cuda.synchronize()
+    return out, sched, ops.launch_counts(), time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: recurrent serving
+# ---------------------------------------------------------------------------
+
+
+def serve_recurrent(serve_mod, cfg, arch, dev, prompts):
+    """Scheduler vs ``recurrent_reference_generate`` on one recurrent model.
+
+    The scheduler is stepped by hand so that, at the first step where a
+    request is decoding, its live slot is read back through
+    ``recurrent_state_read`` and held against the pool's own view.
+    Then one batch-8 decode step of the model is timed on the host clock
+    and by the profiler's kernel times (see :func:`profile_step`).
+    Returns (outputs, reference outputs, scheduler, launch counts of the
+    served run, seconds, whether the read-back matched, step timing)."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = serve_mod.RecurrentLM(cfg, generator=gen, arch=arch, device=dev)
+    sched = serve_mod.Scheduler(model, model.init_pool(BATCH), chunk=CHUNK)
+    for i, p in enumerate(prompts):
+        sched.submit(serve_mod.Request(rid=i, prompt=p, max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    read_ok = None
+    while sched.queue or sched.resident:
+        sched.step()
+        live = [r for r in sched.resident if r.generated and not r.done]
+        if read_ok is None and live:
+            slot = live[0].slot
+            pool = sched.family.pool.tensors
+            read_ok = all(
+                torch.equal(ops.recurrent_state_read(t, slot), t[:, slot])
+                for t in pool.values())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    out = {rid: r.generated for rid, r in sorted(sched.finished.items())}
+    pool = model.init_pool(BATCH)
+    want = serve_mod.recurrent_reference_generate(
+        model, pool, prompts, MAX_NEW, chunk=CHUNK)
+    cur = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+    act = torch.ones((BATCH,), dtype=torch.bool, device=dev)
+    step = lambda: model._step(pool.tensors, cur, None, act)
+    wall_ms = statistics.median(sync_ms(step) for _ in range(5))
+    timing = dict(step_wall_ms=wall_ms, device_busy_ms="not measured")
+    prof = profile_step(step)
+    if prof is not None:
+        timing.update(device_busy_ms=prof["busy_ms"],
+                      device_idle_share=1.0 - prof["busy_ms"] / wall_ms,
+                      kernels_per_step=prof["kernels"], top=prof["top"])
+    return (out, dict(enumerate(want)), sched, launches, seconds, read_ok,
+            timing)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -446,6 +715,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
 
     # -- phase 1: setup -------------------------------------------------------
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -465,16 +735,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {lib.stem}: {line.strip()}")
 
+    phase_s = {"setup": time.perf_counter() - t_start}
     cfg = get_config("yi-6b")
     prompts = make_prompts(cfg.vocab)
     lens = [len(p) + MAX_NEW // 2 for p in prompts]
 
     # -- phase 2: kernels vs plain versions -----------------------------------
+    t0 = time.perf_counter()
     records = check_kernels(ops, dev, lens, bw, flops)
     for (kname, tag), rec in sorted(records.items()):
         log(f"kernel {kname} [{tag}]: " + json.dumps(rec))
+    phase_s["kernels"] = time.perf_counter() - t0
 
-    # -- phase 3: the main path, full-width yi-6b -----------------------------
+    # -- phase 3: paged serving, full-width yi-6b -----------------------------
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = serve_mod.PagedLM(cfg, generator=gen, kv_dtype="fp32",
                                device=dev).params
@@ -484,10 +758,14 @@ def main() -> int:
         f"{weight_gb:.2f} GB of fp32 weights; prompts "
         f"{[len(p) for p in prompts]}")
     launches = {k: 0 for k in ops.launch_counts()}
+    statics = {}
+    paged_kernels = ("indirect_gather", "indirect_scatter",
+                     "paged_decode_attention", "paged_prefill_attention")
     for kv_dtype in ("fp32", "int8"):
         pool = tight_pool(prompts) if kv_dtype == "int8" else None
         out, static, sched, counts, secs = serve(
             serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
+        statics[kv_dtype] = static
         for k, v in counts.items():
             launches[k] += v
         div = first_divergence(out, static)
@@ -502,18 +780,87 @@ def main() -> int:
         require(sorted(out) == list(range(N_REQUESTS))
                 and all(len(t) == MAX_NEW for t in out.values()),
                 f"serve {kv_dtype}: not every request finished")
-        require(all(v > 0 for v in counts.values()),
+        require(all(counts[k] > 0 for k in paged_kernels),
                 f"serve {kv_dtype}: a kernel never launched: {counts}")
         if kv_dtype == "int8":
             require(st.n_evictions >= 1,
                     "serve int8: the tight pool forced no eviction")
     tp = throughput(serve_mod, cfg, dev, params, prompts)
     log(f"throughput fp32 ({smi}): " + json.dumps(tp))
+    phase_s["paged serving"] = time.perf_counter() - t0
+
+    # -- phase 4: speculative serving, full-width yi-6b -----------------------
+    t0 = time.perf_counter()
+    for kv_dtype in ("fp32", "int8"):
+        pool = tight_pool(prompts) if kv_dtype == "int8" else None
+        out, sched, counts, secs = serve_spec(
+            serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
+        for k, v in counts.items():
+            launches[k] += v
+        div = first_divergence(out, statics[kv_dtype])
+        st = sched.stats
+        log(f"serve spec_k={SPEC_K} {kv_dtype} ({smi}): pool "
+            f"{sched.cache.total_pages} pages, {st.tokens} tokens in "
+            f"{secs:.3f} s ({st.tokens / secs:.1f} tokens/s), "
+            f"{st.spec_steps} verify steps, acceptance rate "
+            f"{st.acceptance_rate:.4f} ({st.n_accepted}/{st.n_drafted} "
+            f"drafts), {st.n_evictions} evictions; launches {counts}; "
+            f"streams equal to plain greedy: {div is None}")
+        require(div is None,
+                f"serve spec {kv_dtype}: first divergence at {div}")
+        require(sorted(out) == list(range(N_REQUESTS))
+                and all(len(t) == MAX_NEW for t in out.values()),
+                f"serve spec {kv_dtype}: not every request finished")
+        require(st.spec_steps > 0 and counts["paged_verify"] > 0
+                and counts["indirect_scatter"] > 0
+                and counts["indirect_gather"] > 0,
+                f"serve spec {kv_dtype}: verify never launched: {counts}")
+        if kv_dtype == "int8":
+            require(st.n_evictions >= 1,
+                    "serve spec int8: the tight pool forced no eviction")
+    del params, sched
+    torch.cuda.empty_cache()
+    phase_s["speculative serving"] = time.perf_counter() - t0
+
+    # -- phase 5: recurrent serving, rwkv6-3b and Mamba at yi-6b width --------
+    for label, rcfg, arch in (("rwkv6-3b", get_config("rwkv6-3b"), "rwkv6"),
+                              ("mamba", cfg, "mamba")):
+        t0 = time.perf_counter()
+        out, want, sched, counts, secs, read_ok, timing = serve_recurrent(
+            serve_mod, rcfg, arch, dev, prompts)
+        for k, v in counts.items():
+            launches[k] += v
+        div = first_divergence(out, want)
+        st = sched.stats
+        fam = sched.family
+        log(f"serve {label} ({rcfg.n_layers} layers, d_model "
+            f"{rcfg.d_model}, {rcfg.dtype} activations; {smi}): state pool "
+            f"{fam.pool_bytes / 1e6:.1f} MB, {st.tokens} tokens in "
+            f"{secs:.3f} s ({st.tokens / secs:.1f} tokens/s), "
+            f"{st.prefill_steps} prefill steps, {st.decode_steps} decode "
+            f"steps; launches {counts}; equal to the reference generator: "
+            f"{div is None}; live-slot read-back equal: {read_ok}; decode "
+            f"step at batch 8: " + json.dumps(timing))
+        require(div is None, f"serve {label}: first divergence at {div}")
+        require(sorted(out) == list(range(N_REQUESTS))
+                and all(len(t) == MAX_NEW for t in out.values()),
+                f"serve {label}: not every request finished")
+        require(counts["strided_scatter"] >= 1,
+                f"serve {label}: no strided scatter launched: {counts}")
+        require(read_ok is True and counts["strided_gather"] >= 1,
+                f"serve {label}: the live-slot read-back failed: {read_ok}")
+        del out, want, sched, fam
+        torch.cuda.empty_cache()
+        phase_s[f"{label} serving"] = time.perf_counter() - t0
+    phase_s["total"] = time.perf_counter() - t_start
+    log("phase seconds: " + json.dumps(phase_s))
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
-        rec = records[(kname, "fp32")]
-        err = max(records[(kname, t)]["max_abs_err"] for t in ("fp32", "int8"))
+        tag = REPORTED[kname]
+        rec = records[(kname, tag)]
+        err = max(r["max_abs_err"] for (k, _), r in records.items()
+                  if k == kname)
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches[kname], max_abs_err=err, ms=rec["ms"],

@@ -1,10 +1,11 @@
 """repro_torch: the PyTorch and CUDA port of the AXI-Pack serving stack.
 
 A second package beside the JAX reference ``repro``.  It keeps ``repro``'s
-module names (``configs``, ``core``, ``kernels``, ``serve``), imports only
-``torch``, numpy and the standard library, and replaces each Pallas TPU
-kernel on the paged serving path with a CUDA C++ kernel for Hopper
-(``kernels/csrc``), built with ``nvcc`` at first use.
+module names (``configs``, ``core``, ``kernels``, ``models``, ``serve``),
+imports only ``torch``, numpy and the standard library, and replaces each
+Pallas TPU kernel on its serving paths (paged, speculative and recurrent)
+with a CUDA C++ kernel for Hopper (``kernels/csrc``), built with ``nvcc``
+at first use.
 
 Entry points take ``device=None``, meaning ``cuda``; see :mod:`.device`.
 """

@@ -1,8 +1,10 @@
 """Architecture registry of the port: the configurations its slices serve.
 
-A copy of the parts of ``repro.configs`` the paged serving slice needs:
-the ``yi-6b`` entry and :func:`smoke_config`, which reduces it to a CPU-test
-size exactly as the reference does.
+A copy of the parts of ``repro.configs`` the serving slices need: the
+``yi-6b`` entry (paged and speculative serving, and the Mamba block at its
+width), the ``rwkv6-3b`` entry (recurrent serving) and
+:func:`smoke_config`, which reduces either to a CPU-test size exactly as
+the reference does.
 """
 from __future__ import annotations
 
@@ -10,9 +12,10 @@ import dataclasses
 from typing import Dict, List
 
 from .base import ArchConfig
+from .rwkv6_3b import CONFIG as _rwkv6_3b
 from .yi_6b import CONFIG as _yi_6b
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_yi_6b]}
+ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_yi_6b, _rwkv6_3b]}
 
 ALL_ARCH_NAMES: List[str] = list(ARCHS)
 

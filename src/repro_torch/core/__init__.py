@@ -6,6 +6,9 @@ from .packing import (
     paged_prefill_traffic,
     prefill_page_counts,
     prefix_share_traffic,
+    recurrent_decode_traffic,
+    recurrent_prefill_traffic,
+    spec_verify_traffic,
 )
 from .streams import (
     BurstKind,
@@ -17,5 +20,7 @@ from .streams import (
     elements_per_beat,
     page_table_streams,
     prefill_table_streams,
+    recurrent_state_streams,
     share_table_streams,
+    verify_table_streams,
 )

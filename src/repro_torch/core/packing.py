@@ -5,7 +5,8 @@ Exact bytes a serving step moves under BASE (packing-oblivious, padded,
 full-width) and PACK (paged, packed) semantics.  The scheduler records one
 :class:`Traffic` per step; the numbers are computed from shapes and
 lengths on the host, so they are the same whichever device runs the step.
-Only the paged-serving functions are copied here; the jnp ``pack_*`` /
+Only the serving functions are copied here (paged, speculative verify
+and recurrent); the jnp ``pack_*`` /
 ``unpack_*`` helpers of the reference are not needed by the port.
 """
 from __future__ import annotations
@@ -22,6 +23,9 @@ __all__ = [
     "prefill_page_counts",
     "paged_prefill_traffic",
     "prefix_share_traffic",
+    "spec_verify_traffic",
+    "recurrent_decode_traffic",
+    "recurrent_prefill_traffic",
 ]
 
 
@@ -231,3 +235,120 @@ def prefix_share_traffic(
     idx = n_pages * index_bytes
     idx = int(np.ceil(idx / granule_bytes)) * granule_bytes if idx else 0
     return Traffic(useful, base, 0, 0, idx, shared_pages=n_pages)
+
+
+def spec_verify_traffic(
+    lengths,
+    scored,
+    page_size: int,
+    pages_per_seq: int,
+    token_bytes: int,
+    index_bytes: int = 4,
+    granule_bytes: int = 32,
+    elem_bits: int = 32,
+    scale_bytes_per_token: int = 0,
+) -> Traffic:
+    """Traffic of one speculative K-token verify step, BASE vs PACK.
+
+    ``lengths[r]`` is row ``r``'s context before the step and ``scored[r]``
+    how many query tokens (feed + drafts, 0 for inactive rows) the verify
+    kernel scored in its single walk.  The page math is prefill's with
+    ``starts = lengths`` — a verify chunk *is* a causal chunk at the
+    context tail — but the **BASE counterfactual is different**, and it is
+    the point of the whole speculative path:
+
+    * **BASE** is the non-speculative narrow decoder emitting the same
+      tokens one at a time: ``scored[r]`` separate full-width padded walks
+      per row (``sum(scored) × pages_per_seq × page_size × token_bytes``)
+      plus one transaction granule per written row.  This is what PR-7's
+      decode path actually pays per K tokens.
+    * **PACK** walks each row's context pages **once** for all K queries
+      (the packed indirect burst amortized over the time axis, not just
+      the batch axis) and writes only the chunk pages — both at the packed
+      width (:func:`packed_token_bytes`), with the page-table entries
+      fetched near memory (``index_bus_bytes_pack``).
+    * ``useful_bytes`` is one context read plus the rows written, at the
+      packed width — same form as prefill.
+
+    The BASE/PACK ratio therefore approaches ``K ×`` the plain-decode
+    ratio at full acceptance, degrading gracefully with ``scored``.
+    """
+    lens = np.asarray(lengths, dtype=np.int64)
+    sc = np.asarray(scored, dtype=np.int64)
+    live = np.where(sc > 0, lens + sc, 0)
+    packed = packed_token_bytes(token_bytes, elem_bits, scale_bytes_per_token)
+    ctx, chunk = prefill_page_counts(lens, sc, page_size)
+    ctx_pages = int(np.sum(ctx))
+    chunk_pages = int(np.sum(chunk))
+    useful = int(np.sum(live) + np.sum(sc)) * packed
+    base = (int(np.sum(sc)) * pages_per_seq * page_size * token_bytes
+            + int(np.sum(sc)) * granule_bytes)
+    pack = (ctx_pages + chunk_pages) * page_size * packed
+    pack = int(np.ceil(pack / granule_bytes)) * granule_bytes if pack else 0
+    idx = (ctx_pages + chunk_pages) * index_bytes
+    idx = int(np.ceil(idx / granule_bytes)) * granule_bytes if idx else 0
+    return Traffic(useful, base, pack, 0, idx)
+
+
+def recurrent_decode_traffic(
+    n_active: int,
+    batch: int,
+    state_bytes: int,
+    granule_bytes: int = 32,
+) -> Traffic:
+    """Traffic of one recurrent (RWKV/Mamba) decode step, BASE vs PACK.
+
+    The strided-burst sibling of :func:`paged_decode_traffic`: a decode
+    step is a read-modify-write of each active sequence's fixed-size state
+    (``state_bytes`` per sequence — all layers, all state tensors), laid
+    out (layer, slot) so one sequence's rows sit at a fixed stride of
+    ``batch`` rows (the :func:`repro.core.streams.recurrent_state_streams`
+    descriptors).  No index vector exists — the stride *is* the
+    descriptor — so unlike the indirect dialect there is no
+    ``index_bus_bytes`` term at all.
+
+    * **BASE** is the padded-batch server: it streams the whole (layer,
+      batch) state pool through (read + write) regardless of how many
+      slots are live — ``2 × batch × state_bytes``.
+    * **PACK** issues one strided burst pair per active slot, moving
+      exactly its rows (densely packed; granule-rounded):
+      ``2 × n_active × state_bytes``.
+    * ``useful_bytes`` equals PACK's payload — recurrent state has no dead
+      tokens inside a row, so the strided PACK efficiency is ≈ 1 by
+      construction while BASE efficiency is the occupancy ``A / batch``.
+      That contrast (indirect pays the r/(r+1) index tax, strided does
+      not) is exactly the Fig. 3 comparison the serving benchmark reports.
+    """
+    useful = 2 * int(n_active) * int(state_bytes)
+    pack = int(np.ceil(useful / granule_bytes)) * granule_bytes if useful else 0
+    base = 2 * int(batch) * int(state_bytes)
+    return Traffic(useful, base, pack, 0)
+
+
+def recurrent_prefill_traffic(
+    counts,
+    batch: int,
+    state_bytes: int,
+    granule_bytes: int = 32,
+) -> Traffic:
+    """Traffic of one batched recurrent prefill chunk, BASE vs PACK.
+
+    A fused prefill chunk loads each pending sequence's state once, scans
+    ``counts[r]`` prompt tokens on-chip, and writes the state back once —
+    so PACK moves the same ``2 × state_bytes`` per active row a decode
+    step does, *independent of the chunk length* (the recurrent analogue
+    of prefill's context-read amortization).
+
+    * **BASE** is the packing-oblivious server that re-streams the padded
+      (layer, batch) pool per token position of the chunk:
+      ``2 × batch × max(counts) × state_bytes``.
+    * **PACK** / ``useful_bytes``: ``2 × n_active × state_bytes``,
+      granule-rounded (strided bursts are dense — no index term).
+    """
+    ct = np.asarray(counts, dtype=np.int64)
+    n_active = int(np.count_nonzero(ct))
+    chunk = int(ct.max()) if ct.size else 0
+    useful = 2 * n_active * int(state_bytes)
+    pack = int(np.ceil(useful / granule_bytes)) * granule_bytes if useful else 0
+    base = 2 * int(batch) * chunk * int(state_bytes)
+    return Traffic(useful, base, pack, 0)

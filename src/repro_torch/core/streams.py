@@ -5,7 +5,9 @@ access sequence the way an AXI-Pack request does: cheap integer metadata
 travelling ahead of the data, with an indirect stream's index vector kept
 in memory.  The paged serving path builds one :class:`IndirectStream` per
 sequence and step, whose indices are the page-table entries the CUDA
-kernels resolve on the card.
+kernels resolve on the card; the recurrent path one :class:`StridedStream`
+per state tensor, slot and direction, whose base and stride are the whole
+address the strided converter kernels are launched with.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ __all__ = [
     "page_table_streams",
     "prefill_table_streams",
     "share_table_streams",
+    "verify_table_streams",
+    "recurrent_state_streams",
 ]
 
 
@@ -312,3 +316,80 @@ def share_table_streams(
             remap_only=True,
         ),
     )
+
+
+def verify_table_streams(
+    page_table,
+    lengths,
+    scored,
+    page_size: int,
+    token_bytes: int,
+    index_bits: int = 32,
+    kv_elem_bits: int = 32,
+    scale_bytes_per_token: int = 0,
+) -> Tuple["IndirectStream", ...]:
+    """Indirect-stream descriptors for one speculative K-token verify step.
+
+    A verify chunk is a causal prefill chunk appended at the context tail,
+    so the descriptors *are* :func:`prefill_table_streams` with
+    ``starts = lengths`` — per active row one context-read stream over the
+    leading ``ceil((length + scored)/page)`` table entries (the single
+    clamped walk ``paged_verify`` amortizes over all K queries, where plain
+    decode would emit ``scored`` separate walks) and one chunk-write stream
+    over the pages the K appended tokens land in.  Shares its page math
+    with :func:`repro.core.packing.spec_verify_traffic` through
+    :func:`repro.core.packing.prefill_page_counts`.
+    """
+    return prefill_table_streams(
+        page_table, lengths, scored, page_size, token_bytes,
+        index_bits=index_bits, kv_elem_bits=kv_elem_bits,
+        scale_bytes_per_token=scale_bytes_per_token,
+    )
+
+
+def recurrent_state_streams(
+    slots: Sequence[int],
+    batch: int,
+    n_layers: int,
+    row_bytes: Sequence[int],
+) -> Tuple["StridedStream", ...]:
+    """Strided read-modify-write descriptors for one recurrent decode step.
+
+    The strided-burst sibling of :func:`page_table_streams`: recurrent
+    (RWKV/Mamba) serving state is fixed-size per sequence and lives in
+    pools of shape ``(n_layers, batch, *row)``.  Flattened to
+    ``(n_layers × batch)`` rows, one sequence's state sits at rows
+    ``slot, slot + batch, slot + 2·batch, …`` — a textbook strided stream:
+    ``base = slot``, ``stride = batch``, ``count = n_layers``, with the
+    whole per-layer row as the element.  No memory-resident index vector
+    exists; the stride in the request descriptor is the entire addressing
+    metadata (the ``pack``/``indir=0`` encoding of the paper).
+
+    A decode step both reads and writes the state, so *two* descriptors
+    are emitted per (active slot, state tensor): the read burst and the
+    write-back burst.  ``row_bytes`` carries one per-layer row footprint
+    per state tensor (RWKV6 has one — the (H, 64, 64) wkv state; Mamba has
+    two — the SSM state and the conv tail).
+
+    With ``batch == 1`` the stride degenerates to 1 and the descriptor
+    routes to the BASE converter (the never-slower-than-AXI4 guarantee),
+    exactly like :class:`StridedStream` always does.
+
+    The family builds these each step and derives the
+    :func:`repro.core.packing.recurrent_decode_traffic` accounting from the
+    same (slots, batch, layers, bytes) quantities, so descriptors and byte
+    accounting share one source of truth — mirroring the paged path.
+    """
+    out = []
+    for slot in slots:
+        for rb in row_bytes:
+            for _ in range(2):  # read burst + write-back burst
+                out.append(
+                    StridedStream(
+                        base=int(slot),
+                        elem_bits=int(rb) * 8,
+                        count=int(n_layers),
+                        stride=int(batch),
+                    )
+                )
+    return tuple(out)

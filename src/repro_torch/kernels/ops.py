@@ -12,13 +12,18 @@ Each takes ``impl`` in ``{'cuda', 'ref'}``:
   is held against.
 
 ``paged_kv_append`` and ``paged_kv_write_chunk`` are composed over the two
-converter kernels as in the reference.  They update the pools in place,
-where the JAX engine donates them; the pools are returned all the same so
-the call sites of both packages read alike.
+indirect converter kernels, and ``recurrent_state_read`` /
+``recurrent_state_write`` over the two strided ones, as in the reference.
+The writes update the pools in place, where the JAX engine donates them;
+the pools are returned all the same so the call sites of both packages
+read alike.  ``paged_verify`` launches the prefill kernel with
+``starts = lengths``; ``speculative_accept`` is plain integer tensor code
+on any device, as in the reference, which has no kernel for it.
 
-Each of the four kernel wrappers counts its launches in an integer
+Each of the seven kernel wrappers counts its launches in an integer
 attribute, ``launches``, raised by one only where the kernel is launched
-(:func:`launch_counts`, :func:`reset_launch_counts`).
+(:func:`launch_counts`, :func:`reset_launch_counts`).  ``paged_verify``
+counts under its own name, not the prefill kernel's.
 """
 from __future__ import annotations
 
@@ -41,7 +46,13 @@ __all__ = [
     "paged_kv_append",
     "paged_kv_write_chunk",
     "paged_prefill_attention",
+    "paged_verify",
+    "recurrent_state_read",
+    "recurrent_state_write",
     "reset_launch_counts",
+    "speculative_accept",
+    "strided_gather",
+    "strided_scatter",
 ]
 
 _IMPLS = ("cuda", "ref")
@@ -67,9 +78,12 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 _CONVERTER_ARGS = [_P] * 3 + [_L] * 3 + [_P]
+_STRIDED_ARGS = [_P] * 2 + [_L] * 5 + [_P]
 _SIGNATURES = {  # C entry: (library, argument types)
     "repro_indirect_gather": ("stream_converters", _CONVERTER_ARGS),
     "repro_indirect_scatter": ("stream_converters", _CONVERTER_ARGS),
+    "repro_strided_gather": ("stream_converters", _STRIDED_ARGS),
+    "repro_strided_scatter": ("stream_converters", _STRIDED_ARGS),
     "repro_paged_decode": ("paged_decode", [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     "repro_paged_prefill": ("paged_prefill",
                             [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
@@ -121,9 +135,100 @@ def _counted(fn):
     return fn
 
 
+def _row_bytes(t: torch.Tensor) -> int:
+    return math.prod(t.shape[1:]) * t.element_size()
+
+
 # ---------------------------------------------------------------------------
 # Stream converters
 # ---------------------------------------------------------------------------
+
+
+@_counted
+def strided_gather(src: torch.Tensor, base: int, stride: int, count: int,
+                   impl: str = "cuda") -> torch.Tensor:
+    """out[k] = src[base + k*stride] — packed strided read.
+
+    ``src`` is ``(n_rows, *row)`` of any dtype; rows are copied as bytes.
+    ``base``, ``stride`` and ``count`` are the whole descriptor: no index
+    tensor exists.  Rows outside ``[0, n_rows)`` are clipped to the
+    nearest row.
+    """
+    if not _use_kernel(impl, src):
+        return ref.strided_gather(src, base, stride, count)
+    _check(src.is_contiguous() and src.dim() >= 1 and src.shape[0] > 0,
+           "strided_gather: src must be a contiguous non-empty tensor")
+    _check(count >= 0, f"strided_gather: count {count} < 0")
+    out = torch.empty((count,) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device)
+    _launch("repro_strided_gather", _ptr(src), _ptr(out), src.shape[0],
+            int(base), int(stride), count, _row_bytes(src), _stream(src))
+    strided_gather.launches += 1
+    return out
+
+
+@_counted
+def strided_scatter(dst: torch.Tensor, packed: torch.Tensor, base: int,
+                    stride: int, impl: str = "cuda") -> torch.Tensor:
+    """dst[base + k*stride] = packed[k] — packed strided write, in place.
+
+    Returns ``dst``.  A row outside ``[0, len(dst))`` is dropped; rows
+    that repeat (``stride == 0``) have no defined order.
+    """
+    if not _use_kernel(impl, dst):
+        return ref.strided_scatter(dst, packed, base, stride)
+    _check(dst.is_contiguous() and dst.dim() >= 1,
+           "strided_scatter: dst must be contiguous (it is written in place)")
+    _check(packed.device == dst.device and packed.dtype == dst.dtype
+           and tuple(packed.shape[1:]) == tuple(dst.shape[1:]),
+           f"strided_scatter: packed {tuple(packed.shape)} {packed.dtype} "
+           f"does not match dst rows {tuple(dst.shape)} {dst.dtype}")
+    packed = packed.contiguous()
+    _launch("repro_strided_scatter", _ptr(dst), _ptr(packed), dst.shape[0],
+            int(base), int(stride), packed.shape[0], _row_bytes(dst),
+            _stream(dst))
+    strided_scatter.launches += 1
+    return dst
+
+
+def _flat_state_view(pool: torch.Tensor, slot: int) -> torch.Tensor:
+    """(L, B, *row) pool → its (L·B, row) view, after checking ``slot``."""
+    _check(pool.dim() >= 2 and pool.is_contiguous(),
+           f"state pool must be a contiguous (L, B, *row) tensor, got "
+           f"{tuple(pool.shape)}")
+    _check(0 <= slot < pool.shape[1],
+           f"slot {slot} outside the pool's {pool.shape[1]} slots")
+    return pool.view(pool.shape[0] * pool.shape[1], -1)
+
+
+def recurrent_state_read(pool: torch.Tensor, slot: int,
+                         impl: str = "cuda") -> torch.Tensor:
+    """One sequence's state rows from an ``(L, B, *row)`` pool, ``(L, *row)``.
+
+    Slot ``s`` of a layer-major pool is rows ``s, s+B, s+2B, ...`` of the
+    flat ``(L·B, row)`` view: one strided burst with base = slot, stride =
+    B, count = L, whatever the row's width or dtype.
+    """
+    if not _use_kernel(impl, pool):
+        return ref.recurrent_state_read(pool, slot)
+    l, b = pool.shape[:2]
+    out = strided_gather(_flat_state_view(pool, slot), slot, b, l, impl=impl)
+    return out.view((l,) + tuple(pool.shape[2:]))
+
+
+def recurrent_state_write(pool: torch.Tensor, slot: int, value: torch.Tensor,
+                          impl: str = "cuda") -> torch.Tensor:
+    """Write one sequence's ``(L, *row)`` state rows into an ``(L, B, *row)``
+    pool, in place, as one strided burst; returns ``pool``."""
+    if not _use_kernel(impl, pool):
+        return ref.recurrent_state_write(pool, slot, value)
+    l, b = pool.shape[:2]
+    _check(tuple(value.shape) == (l,) + tuple(pool.shape[2:]),
+           f"state value {tuple(value.shape)} does not match pool rows "
+           f"{tuple(pool.shape)}")
+    flat = _flat_state_view(pool, slot)
+    strided_scatter(flat, value.reshape(l, -1), slot, b, impl=impl)
+    return pool
 
 
 @_counted
@@ -142,9 +247,8 @@ def indirect_gather(src: torch.Tensor, indices: torch.Tensor,
     _check(idx.dim() == 1, "indirect_gather: indices must be 1-D")
     out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    row_bytes = src[0].numel() * src.element_size()
     _launch("repro_indirect_gather", _ptr(src), _ptr(idx), _ptr(out),
-            src.shape[0], idx.shape[0], row_bytes, _stream(src))
+            src.shape[0], idx.shape[0], _row_bytes(src), _stream(src))
     indirect_gather.launches += 1
     return out
 
@@ -171,9 +275,8 @@ def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
     idx = _int32(indices, dst.device)
     _check(idx.shape == (packed.shape[0],),
            "indirect_scatter: one index per packed row")
-    row_bytes = packed[0].numel() * packed.element_size() if len(packed) else 0
     _launch("repro_indirect_scatter", _ptr(dst), _ptr(packed), _ptr(idx),
-            dst.shape[0], packed.shape[0], row_bytes, _stream(dst))
+            dst.shape[0], packed.shape[0], _row_bytes(dst), _stream(dst))
     indirect_scatter.launches += 1
     return dst
 
@@ -277,6 +380,16 @@ def paged_prefill_attention(
         return ref.paged_prefill_attention(
             q, k_pages, v_pages, ctx_rows, starts, counts, scale=scale
         )
+    out = _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts,
+                          k_scale, v_scale, scale)
+    paged_prefill_attention.launches += 1
+    return out
+
+
+def _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts, k_scale,
+                    v_scale, scale) -> torch.Tensor:
+    """Check the arguments and launch ``paged_prefill.cu``; the caller
+    counts the launch under its own name."""
     _check(q.dtype == torch.float32 and q.dim() == 4,
            f"q must be (R, C, H, D) float32, got {tuple(q.shape)} {q.dtype}")
     q = q.contiguous()
@@ -297,8 +410,52 @@ def paged_prefill_attention(
             _ptr(k_scale), _ptr(v_scale), _ptr(rows), _ptr(st), _ptr(ct),
             _ptr(out), r, c, h, kvh, d, page, rows.shape[1], sc,
             int(quantized), _stream(q))
-    paged_prefill_attention.launches += 1
     return out
+
+
+@_counted
+def paged_verify(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    ctx_rows: torch.Tensor,
+    lengths: torch.Tensor,
+    counts: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """Score K speculative queries per sequence in one page walk.
+
+    q (B, K, H, D) float32: query ``i`` of row ``b`` sits at
+    ``lengths[b] + i`` (the feed token, then the drafts), its K/V already
+    in the pool; ctx_rows (B, ctx_pages); lengths/counts (B,), counts 0..K
+    (0 = padding row, zeros).  A verify chunk is a causal prefill chunk at
+    the context tail, so this launches the prefill kernel with
+    ``starts = lengths`` — the reference's ``paged_verify_attention_kernel``
+    calls its prefill kernel the same way — and counts the launch here.
+    """
+    if not _use_kernel(impl, q):
+        if k_scale is not None:
+            k_pages = ref.dequantize_pages(k_pages, k_scale)
+            v_pages = ref.dequantize_pages(v_pages, v_scale)
+        return ref.paged_verify_attention(
+            q, k_pages, v_pages, ctx_rows, lengths, counts, scale=scale
+        )
+    out = _prefill_kernel(q, k_pages, v_pages, ctx_rows, lengths, counts,
+                          k_scale, v_scale, scale)
+    paged_verify.launches += 1
+    return out
+
+
+def speculative_accept(drafts: torch.Tensor, greedy: torch.Tensor,
+                       counts: torch.Tensor) -> torch.Tensor:
+    """Greedy first-mismatch acceptance: how many verify tokens each row
+    emits (see :func:`ref.speculative_accept`).  O(B·K) integer ops on the
+    tensors' device with no host read-back; no kernel, as in the
+    reference."""
+    return ref.speculative_accept(drafts, greedy, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -444,9 +601,10 @@ def paged_kv_write_chunk(
 # Launch counts
 # ---------------------------------------------------------------------------
 
-#: The four kernel wrappers, each with its ``launches`` count.
+#: The seven kernel wrappers, each with its ``launches`` count.
 KERNELS = (indirect_gather, indirect_scatter, paged_decode_attention,
-           paged_prefill_attention)
+           paged_prefill_attention, paged_verify, strided_gather,
+           strided_scatter)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -18,16 +18,63 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = [
+    "strided_gather",
+    "strided_scatter",
+    "recurrent_state_read",
+    "recurrent_state_write",
     "indirect_gather",
     "indirect_scatter",
     "paged_decode_attention",
     "paged_prefill_attention",
+    "paged_verify_attention",
+    "speculative_accept",
     "paged_kv_append",
     "paged_kv_write_chunk",
     "int8_quantize",
     "quantize_kv",
     "dequantize_pages",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Packed strided stream converters
+# ---------------------------------------------------------------------------
+
+
+def _strided_rows(base: int, stride: int, count: int,
+                  device: torch.device) -> torch.Tensor:
+    return base + stride * torch.arange(count, device=device)
+
+
+def strided_gather(src: torch.Tensor, base: int, stride: int,
+                   count: int) -> torch.Tensor:
+    """out[k] = src[base + k*stride], rows clipped to those of ``src`` (the
+    reference's ``take(mode='clip')``)."""
+    idx = _strided_rows(base, stride, count, src.device)
+    return src[idx.clamp(0, src.shape[0] - 1)]
+
+
+def strided_scatter(dst: torch.Tensor, packed: torch.Tensor, base: int,
+                    stride: int) -> torch.Tensor:
+    """dst[base + k*stride] = packed[k], in place; returns ``dst``.  A row
+    outside ``[0, len(dst))`` is dropped (the reference's scatter mode)."""
+    idx = _strided_rows(base, stride, packed.shape[0], dst.device)
+    keep = (idx >= 0) & (idx < dst.shape[0])
+    dst[idx[keep]] = packed[keep]
+    return dst
+
+
+def recurrent_state_read(pool: torch.Tensor, slot: int) -> torch.Tensor:
+    """out[l] = pool[l, slot]: one sequence's state rows from a
+    ``(L, B, *row)`` pool, as a new tensor."""
+    return pool[:, slot].clone()
+
+
+def recurrent_state_write(pool: torch.Tensor, slot: int,
+                          value: torch.Tensor) -> torch.Tensor:
+    """pool[l, slot] = value[l], in place; returns ``pool``."""
+    pool[:, slot] = value
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +188,43 @@ def paged_prefill_attention(
     w = w.masked_fill(~mask[:, :, None, :], 0.0)
     out = torch.einsum("rchs,rshd->rchd", w, vg.float())
     return out.to(q.dtype)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    ctx_rows: torch.Tensor,
+    lengths: torch.Tensor,
+    counts: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-query speculative verify attention (``repro.kernels.ref``
+    ``paged_verify_attention``).
+
+    q (B, K, H, D): query ``i`` of row ``r`` is the token at position
+    ``lengths[r] + i``, its K/V already written to the pool; ``counts``
+    (B,) valid queries per row (0 = padding row, zeros).  A verify chunk is
+    a causal prefill chunk at the context tail, so this is
+    :func:`paged_prefill_attention` with ``starts = lengths``.
+    """
+    return paged_prefill_attention(q, k_pages, v_pages, ctx_rows, lengths,
+                                   counts, scale=scale)
+
+
+def speculative_accept(drafts: torch.Tensor, greedy: torch.Tensor,
+                       counts: torch.Tensor) -> torch.Tensor:
+    """Greedy first-mismatch acceptance (``repro.kernels.ref``
+    ``speculative_accept``): how many of the K scored tokens each row emits.
+
+    drafts (B, K-1), greedy (B, K), counts (B,) int32.  Returns
+    ``min(a + 1, counts)`` as int32, where ``a`` is the length of the
+    draft prefix that matches the model's own argmax.  Integer ops on the
+    device only: nothing is read back to the host.
+    """
+    match = (drafts == greedy[:, : drafts.shape[1]]).to(torch.int32)
+    a = torch.cumprod(match, dim=1).sum(dim=1)
+    return torch.minimum(a + 1, counts.to(a.dtype)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

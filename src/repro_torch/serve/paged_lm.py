@@ -12,15 +12,22 @@ to XLA.  :class:`PagedFamily` is the scheduler-facing
 
 Where the reference fuses ``n`` decode steps into one ``lax.scan`` launch,
 the port runs a Python loop whose greedy argmax stays on the device; the
-(n, B) tokens cross to the host once per :meth:`PagedLM.decode_upto`.  The
-pools are updated in place (see :mod:`.kv`).
+(n, B) tokens cross to the host once per :meth:`PagedLM.decode_upto`.
+Speculative decoding (``spec_k > 1``) does the same for its
+draft → append → verify → accept → drafter-update loop
+(:meth:`PagedLM.verify_upto`): the emitted tokens and counts cross once per
+call.  The pools are updated in place (see :mod:`.kv`).
 
 Every per-token computation is row-wise, so a sequence's tokens do not
 depend on the batch it rides in — the property the scheduler's
 equivalence with :func:`static_batch_generate` rests on.  On a GPU a matrix
 product's rounding can depend on its row count (the library picks its
 kernel by shape), so each prefill row's projections and logits run as
-their own product, with the same shape whichever batch the row is in.
+their own product, with the same shape whichever batch the row is in.  A
+verify step's projections run as one (B·K)-row product, as in the
+reference: its shape does not depend on which slots are active, and its
+tokens need only equal plain greedy decode's, which a decode step reaches
+through another attention kernel anyway.
 """
 from __future__ import annotations
 
@@ -37,14 +44,17 @@ from ..core.packing import (
     paged_decode_traffic,
     paged_prefill_traffic,
     prefix_share_traffic,
+    spec_verify_traffic,
 )
 from ..core.streams import (
     page_table_streams,
     prefill_table_streams,
     share_table_streams,
+    verify_table_streams,
 )
 from ..device import resolve_device
 from ..kernels import ops as kops
+from .drafter import Drafter, NGramDrafter
 from .family import ServableFamily
 from .kv import PagedKVCache, resolve_kv_dtype
 
@@ -53,23 +63,22 @@ __all__ = ["PagedFamily", "PagedLM", "params_from_numpy",
 
 PARAM_NAMES = ("embed", "wq", "wk", "wv", "wo")
 
-_SPEC_LATER = (
-    "speculative decoding is a later slice of the port (ROADMAP queue A, "
-    "item 5: drafter and verify path); spec_k is fixed at 1"
-)
 
-
-def params_from_numpy(params: Dict[str, np.ndarray], device=None
+def params_from_numpy(params: Dict[str, np.ndarray], device=None,
+                      names: Sequence[str] = PARAM_NAMES
                       ) -> Dict[str, torch.Tensor]:
     """The reference model's ``params`` (``embed``, ``wq``, ``wk``, ``wv``,
     ``wo`` as arrays) as float32 tensors on ``device`` (``None`` =
-    ``cuda``), so both packages can serve the same weights."""
+    ``cuda``), so both packages can serve the same weights.
+
+    ``names`` picks a subset: ``names=("embed",)`` carries only the
+    embedding, which is all a :class:`~.drafter.TinyLMDrafter` takes."""
     dev = resolve_device(device)
-    missing = [k for k in PARAM_NAMES if k not in params]
+    missing = [k for k in names if k not in params]
     if missing:
         raise KeyError(f"params lack {missing}")
     return {k: torch.tensor(np.asarray(params[k]), dtype=torch.float32,
-                            device=dev) for k in PARAM_NAMES}
+                            device=dev) for k in names}
 
 
 def _as_device(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -159,6 +168,86 @@ def _prefill_batch(params, tokens, counts, seqs, starts, k_pages, v_pages,
     return logits, new_len
 
 
+def _verify_step(params, q_tokens, k_pages, v_pages, k_scale, v_scale,
+                 page_table, lengths, counts, *, h, kvh, hd, ctx_pages,
+                 impl):
+    """Score K speculative tokens per sequence in one multi-query pass;
+    returns per-position logits (B, K, vocab) and updates the pools in
+    place.
+
+    q_tokens (B, K) int32: the feed token, then the drafts; row ``b``'s
+    token ``i`` sits at position ``lengths[b] + i``.  ``counts`` (B,)
+    bounds the valid tokens per row (0..K; 0 = inactive, touches nothing).
+    Each layer writes the chunk's K/V through the chunk-bounded indirect
+    write, then :func:`~repro_torch.kernels.ops.paged_verify` scores all K
+    causal queries in one page walk.  Lengths are not advanced here: the
+    accept step owns that, since only accepted tokens survive.
+    """
+    n_layers = params["wq"].shape[0]
+    b, k = q_tokens.shape
+    quantized = k_scale is not None
+    x = params["embed"][q_tokens.long()]                     # (B, K, d)
+    ctx_rows = page_table[:, :ctx_pages].contiguous()
+    for l in range(n_layers):
+        kn = (x @ params["wk"][l]).view(b, k, kvh, hd)
+        vn = (x @ params["wv"][l]).view(b, k, kvh, hd)
+        ks, vs = (k_scale[l], v_scale[l]) if quantized else (None, None)
+        kops.paged_kv_write_chunk(
+            k_pages[l], v_pages[l], kn, vn, page_table, lengths, counts,
+            k_scale=ks, v_scale=vs, impl=impl,
+        )
+        q = (x @ params["wq"][l]).view(b, k, h, hd)
+        attn = kops.paged_verify(
+            q, k_pages[l], v_pages[l], ctx_rows, lengths, counts,
+            k_scale=ks, v_scale=vs, impl=impl,
+        )
+        x = x + attn.reshape(b, k, h * hd) @ params["wo"][l]
+    return x @ params["embed"].T
+
+
+def _verify_steps(params, feed, dstate, k_pages, v_pages, k_scale, v_scale,
+                  page_table, lengths, active, caps, *, drafter, n, spec_k,
+                  vocab, h, kvh, hd, ctx_pages, impl):
+    """``n`` draft → append → verify → accept → drafter-update iterations,
+    all on the device (the reference's ``lax.scan`` is this loop).
+
+    Each iteration drafts ``spec_k - 1`` tokens, scores feed + drafts with
+    :func:`_verify_step`, emits the matched draft prefix plus the model's
+    bonus token (:func:`~repro_torch.kernels.ops.speculative_accept`) and
+    advances the lengths by the emitted count.  That is the whole KV
+    rollback: rejected appends lie past the new length, masked out of
+    every later attention and overwritten by the next chunk write.
+    ``caps`` (B,) is each slot's mapped-token capacity; the scored count is
+    clamped on the device to ``clip(caps - lens, 0, spec_k)``, so
+    speculation never writes past a slot's pages (0 stalls the slot until
+    the scheduler grows it).
+
+    Returns ``(tokens (n, B, K), counts (n, B), feed, dstate, lengths)``
+    as device tensors; step ``s`` emitted ``tokens[s, b, :counts[s, b]]``.
+    """
+    fd, ds, lens = feed, dstate, lengths
+    toks, emitted = [], []
+    for _ in range(n):
+        drafts = drafter.draft(ds, fd, spec_k - 1)           # (B, K-1)
+        q_tokens = torch.cat([fd[:, None], drafts], dim=1)
+        counts = torch.where(active, (caps - lens).clamp(0, spec_k),
+                             torch.zeros_like(lens))
+        logits = _verify_step(
+            params, q_tokens, k_pages, v_pages, k_scale, v_scale,
+            page_table, lens, counts, h=h, kvh=kvh, hd=hd,
+            ctx_pages=ctx_pages, impl=impl,
+        )
+        g = logits[..., :vocab].argmax(dim=-1).to(torch.int32)
+        n_emit = kops.speculative_accept(drafts, g, counts)
+        last = g.gather(1, (n_emit.long() - 1).clamp(0, spec_k - 1)[:, None])
+        fd = torch.where(n_emit > 0, last[:, 0], fd)
+        ds = drafter.update(ds, q_tokens, g, n_emit)
+        lens = lens + n_emit.to(lens.dtype)
+        toks.append(g)
+        emitted.append(n_emit)
+    return torch.stack(toks), torch.stack(emitted), fd, ds, lens
+
+
 class PagedLM:
     """Attention-only LM serving straight out of a :class:`PagedKVCache`.
 
@@ -173,20 +262,27 @@ class PagedLM:
     ``impl='ref'`` runs the plain versions everywhere.  ``kv_dtype`` is
     ``'fp32'`` or ``'int8'`` (quantize on write, dequantize after each page
     load); the matching cache must be created with the same ``kv_dtype``.
-    ``device=None`` means ``cuda``.
+    ``spec_k > 1`` serves speculatively: each decode launch step scores the
+    feed token and ``spec_k - 1`` drafts from ``drafter`` (an
+    :class:`~.drafter.NGramDrafter` by default).  ``device=None`` means
+    ``cuda``.
     """
 
     def __init__(self, cfg: ArchConfig,
                  generator: Optional[torch.Generator] = None,
                  impl: str = "cuda", kv_dtype=None, spec_k: int = 1,
                  device=None,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
-        if spec_k != 1:
-            raise NotImplementedError(_SPEC_LATER)
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 drafter: Optional[Drafter] = None):
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         if impl not in ("cuda", "ref"):
             raise ValueError(f"impl must be 'cuda' or 'ref', got {impl!r}")
         self.cfg = cfg
         self.impl = impl
+        self.spec_k = spec_k
+        self.drafter = drafter if drafter is not None else NGramDrafter(
+            cfg.vocab)
         self.device = resolve_device(device)
         self.kv_dtype = resolve_kv_dtype(cfg, kv_dtype)
         h, kvh = cfg.heads_for_tp(1)
@@ -311,6 +407,57 @@ class PagedLM:
         toks, cache = self.decode_steps(tokens, cache, active, n)
         return toks.cpu().numpy(), cache
 
+    # -- speculative verify --------------------------------------------------
+
+    def verify_upto(self, tokens, cache: PagedKVCache, active, n: int,
+                    dstate):
+        """``n`` draft → verify → accept iterations (:func:`_verify_steps`).
+
+        tokens (B,) feed tokens; ``dstate`` the drafter state
+        (:meth:`~.drafter.Drafter.init_state`).  The attention context is
+        bounded by the pages the furthest slot can reach in this call,
+        rounded up to a power of two as in the reference.  Everything stays
+        on the device until the stacked tokens and counts cross to the host
+        once, here; the host length shadow is then advanced by the emitted
+        counts.
+
+        Returns ``(toks (n, B, K) np.ndarray, counts (n, B) np.ndarray,
+        cache, dstate)``.
+        """
+        k = self.spec_k
+        b = cache.page_table.shape[0]
+        page = cache.page_size
+        lens_host = (cache.lengths_host if cache.lengths_host is not None
+                     else cache.lengths.cpu().numpy())
+        act_host = _host(active).astype(bool)
+        caps = np.array([cache._mapped(s) * page for s in range(b)],
+                        np.int64)
+        hi = np.where(act_host, np.minimum(lens_host + n * k, caps),
+                      lens_host)
+        need = int(max(1, -(-int(hi.max()) // page)))
+        ctx = 1
+        while ctx < need:
+            ctx *= 2
+        ctx = min(ctx, cache.pages_per_seq)
+        dev = self.device
+        toks, counts, _, dstate, lens = _verify_steps(
+            self.params, _as_device(tokens, torch.int32, dev), dstate,
+            *self._pools(cache), cache.page_table, cache.lengths,
+            _as_device(act_host, torch.bool, dev),
+            _as_device(caps, torch.int32, dev),
+            drafter=self.drafter, n=n, spec_k=k, vocab=self.cfg.vocab,
+            h=self.h, kvh=self.kvh, hd=self.hd, ctx_pages=ctx,
+            impl=self.impl,
+        )
+        both = torch.cat([toks, counts[..., None]], dim=-1).cpu().numpy()
+        toks_h, counts_h = both[..., :k], both[..., k]      # one sync
+        cache = dataclasses.replace(
+            cache, lengths=lens,
+            lengths_host=(lens_host + counts_h.sum(axis=0)).astype(
+                lens_host.dtype) if cache.lengths_host is not None else None,
+        )
+        return toks_h, counts_h, cache, dstate
+
     # -- prefill -------------------------------------------------------------
 
     def prefill_batch(self, tokens: np.ndarray, counts: np.ndarray,
@@ -370,9 +517,10 @@ class PagedFamily(ServableFamily):
     """:class:`ServableFamily` over a :class:`PagedLM` + :class:`PagedKVCache`.
 
     Resource units are physical pages; traffic accounting is the indirect
-    dialect (``page_table_streams`` / ``paged_decode_traffic``).  A copy of
-    the reference's family without the speculative path: ``spec_k`` is 1,
-    so the scheduler never calls ``verify_steps``.
+    dialect (``page_table_streams`` / ``paged_decode_traffic``, and
+    ``verify_table_streams`` / ``spec_verify_traffic`` for speculative
+    launches).  The drafter state lives here, on the device, from the first
+    verify launch on.
     """
 
     name = "paged"
@@ -392,6 +540,7 @@ class PagedFamily(ServableFamily):
             )
         self.model = model
         self.cache = cache
+        self._drafter_state = None
 
     # -- geometry -----------------------------------------------------------
 
@@ -470,8 +619,63 @@ class PagedFamily(ServableFamily):
         )
         return out
 
-    def verify_steps(self, tokens, active, n: int):
-        raise NotImplementedError(_SPEC_LATER)
+    # -- speculative verify --------------------------------------------------
+
+    @property
+    def spec_k(self) -> int:
+        return self.model.spec_k
+
+    def verify_steps(self, tokens, active,
+                     n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``n`` draft → verify → accept steps over ``active`` slots.
+
+        Returns ``(toks (n, B, spec_k), counts (n, B))`` host arrays, one
+        sync at the boundary.  The drafter state is kept across launches;
+        it only shapes the acceptance rate, so evictions and replays never
+        reset it.
+        """
+        if self._drafter_state is None:
+            self._drafter_state = self.model.drafter.init_state(
+                self.batch, self.model.device)
+        toks, counts, self.cache, self._drafter_state = \
+            self.model.verify_upto(
+                tokens, self.cache, active, n, self._drafter_state
+            )
+        return toks, counts
+
+    def verify_account(self, lens0: np.ndarray, active,
+                       counts: np.ndarray) -> List[Tuple[Traffic, tuple]]:
+        """Per-step (Traffic, streams) of a verify run that just completed,
+        rebuilt from the pre-launch length shadow ``lens0`` and the emitted
+        ``counts`` (n, B); each step's scored count is re-derived with the
+        ``clip(caps - len, 0, spec_k)`` clamp the device loop applied."""
+        k = self.model.spec_k
+        page = self.cache.page_size
+        b = self.batch
+        table = np.array(self._host_table())
+        slots = np.nonzero(np.asarray(active))[0]
+        caps = np.array(
+            [self.cache._mapped(s) * page for s in range(b)], np.int64
+        )
+        lens = np.asarray(lens0, np.int64).copy()
+        accounts: List[Tuple[Traffic, tuple]] = []
+        for s in range(counts.shape[0]):
+            scored = np.zeros((b,), np.int64)
+            scored[slots] = np.clip(caps[slots] - lens[slots], 0, k)
+            traffic = spec_verify_traffic(
+                lens, scored, page, self.cache.pages_per_seq,
+                self.model.kv_token_bytes,
+                elem_bits=self.model.kv_elem_bits,
+                scale_bytes_per_token=self.model.kv_scale_token_bytes,
+            )
+            streams = verify_table_streams(
+                table, lens, scored, page, self.model.kv_token_bytes,
+                kv_elem_bits=self.model.kv_elem_bits,
+                scale_bytes_per_token=self.model.kv_scale_token_bytes,
+            )
+            accounts.append((traffic, streams))
+            lens += np.asarray(counts[s], np.int64)
+        return accounts
 
     # -- traffic accounting -------------------------------------------------
 

@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,7 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
-    PagedKVCache, PagedLM, params_from_numpy)
+    PagedKVCache, PagedLM, RecurrentLM, params_from_numpy,
+    recurrent_params_from_numpy)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -44,12 +46,19 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_port_files_are_scanned():
-    names = {p.name for p in PORT_FILES}
-    assert {"ops.py", "paged_lm.py", "scheduler.py", "chip_smoke.py"} <= names
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES[:-1]} | {PORT_FILES[-1].name}
+    assert {"kernels/ops.py", "kernels/ref.py", "serve/paged_lm.py",
+            "serve/scheduler.py", "serve/drafter.py",
+            "serve/recurrent_lm.py", "models/common.py", "models/rwkv6.py",
+            "models/mamba.py", "configs/rwkv6_3b.py", "core/packing.py",
+            "core/streams.py", "chip_smoke.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.core, "
+            "repro_torch.models.rwkv6, repro_torch.models.mamba, "
+            "repro_torch.serve.drafter, repro_torch.serve.recurrent_lm, "
             "repro_torch.kernels.ops, repro_torch.kernels.build; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
@@ -70,6 +79,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         PagedKVCache.create(cfg, batch=2, max_len=16, page=4)
     with pytest.raises(RuntimeError, match="GPU"):
         params_from_numpy({})
+    with pytest.raises(RuntimeError, match="GPU"):
+        RecurrentLM(smoke_config("rwkv6-3b"))
+    with pytest.raises(RuntimeError, match="GPU"):
+        recurrent_params_from_numpy(np.zeros((2, 2)), {})
     # Asked for by name, the CPU works.
     PagedKVCache.create(cfg, batch=2, max_len=16, page=4, device="cpu")
 
