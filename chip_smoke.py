@@ -7,10 +7,10 @@ Run from the root of a checkout, with no arguments::
 
 Phases, each of which fails the run (nonzero exit) if anything is off:
 
-1. Setup: the card's name and power limit; the three CUDA sources of
+1. Setup: the card's name and power limit; the five CUDA sources of
    ``src/repro_torch/kernels/csrc`` built with ``nvcc`` in parallel.
-2. Kernels: each of the seven kernels against its plain PyTorch version
-   on the card.  The paged ones at the yi-6b serving shapes (H=32, KVH=4,
+2. Kernels: each of the seven serving kernels against its plain PyTorch
+   version on the card.  The paged ones at the yi-6b serving shapes (H=32, KVH=4,
    D=128, page 16, batch 8; verify with K=4 queries per sequence), fp32
    and int8 pools; the strided converters at the rwkv6-3b and Mamba
    (yi-6b width) state-pool shapes, fp32 and bf16 rows, plus odd row
@@ -19,7 +19,27 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    every unmapped page: the attention outputs must stay finite.  Kernel,
    plain version and, where one PyTorch call computes the same function,
    that call are timed with CUDA events (median of 25).
-3. Paged serving: full-width yi-6b (32 layers, d_model 4096, 32/4 heads,
+3. Paper workloads: first the three workload kernels against their plain
+   versions, then the port's workload functions (``repro_torch.workloads``)
+   at sizes their users run, with the launch counts reset just before:
+   ismt on a 16,384 x 16,384 fp32 matrix and on a ragged 12,345 x 6,789
+   matrix in fp32 and bf16 (the tiled transpose, bitwise); spmv on an ELL
+   matrix of 2**22 rows and columns, 32 entries a row of which Poisson(24)
+   are live, columns uniform and sorted per row, built on the card from a
+   seeded generator (the ELL SpMV, within rtol = atol = 1e-5: float32
+   sums of a row in another order); pagerank, 20 iterations on the same
+   graph with column-normalised weights through the SpMV kernel; sssp, 12
+   Bellman-Ford sweeps (plain tensor code, bitwise against the CPU on a
+   2**18-node graph); gemv_col and trmv at n = 16,384 (``torch.matmul``);
+   then ``python -m repro_torch.workloads``' own run at n = 128, which
+   checks all six against numpy and prints the modeled speed-ups of the
+   port's bus model and bank simulator.  The panel-streamed SpMV, which no
+   workload calls, is checked on 2**20 panel-sorted rows (K = 32, 4 steps,
+   panel 512, row blocks of 64, C = 2**22) with a few entries outside
+   their panel, which must be masked.  Kernel, plain version and the
+   library call (``x.t().contiguous()``, the cuSPARSE CSR matvec) are
+   timed with CUDA events.
+4. Paged serving: full-width yi-6b (32 layers, d_model 4096, 32/4 heads,
    vocab 64000; random weights from a seeded torch.Generator) through the
    port's ``Scheduler``: 8 requests, prompts of 17-300 tokens, 32 new
    tokens each, batch 8, page 16, max_len 512, chunk 32.  First with fp32
@@ -28,11 +48,11 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    (``impl='ref'``), and every kernel of the path must have launched.
    Then an isolated prefill and decode run gives tokens/s and launches per
    step.
-4. Speculative serving: the same model, prompts and pools with
+5. Speculative serving: the same model, prompts and pools with
    ``spec_k = 4`` and an ``NGramDrafter``: the tokens must equal plain
-   greedy (phase 3's ``static_batch_generate``), verify must have
+   greedy (phase 4's ``static_batch_generate``), verify must have
    launched, and the int8 run must evict.
-5. Recurrent serving: rwkv6-3b at full width (32 layers, d_model 2560,
+6. Recurrent serving: rwkv6-3b at full width (32 layers, d_model 2560,
    40 WKV heads, d_ff 8960, vocab 65536) and the Mamba block at yi-6b
    width, bf16 activations, random weights from a seeded generator,
    through the ``Scheduler`` with batch 8, the same 8 prompts and 32 new
@@ -53,6 +73,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -102,11 +123,31 @@ KERNELS = {
     "strided_scatter": (
         "src/repro_torch/kernels/csrc/stream_converters.cu",
         "src/repro/kernels/stream_converters.py:91"),
+    "tiled_transpose": (
+        "src/repro_torch/kernels/csrc/transpose.cu",
+        "src/repro/kernels/transpose.py:22"),
+    "spmv_ell": (
+        "src/repro_torch/kernels/csrc/spmv.cu",
+        "src/repro/kernels/spmv.py:36"),
+    "spmv_ell_panel_kernel": (
+        "src/repro_torch/kernels/csrc/spmv.cu",
+        "src/repro/kernels/spmv.py:82"),
 }
 #: The record of each kernel that the JSON line reports: the paged ones at
-#: fp32, the strided ones at their widest burst (rwkv6-3b's wkv state).
+#: fp32, the strided ones at their widest burst (rwkv6-3b's wkv state), the
+#: workload ones at the workloads phase's full size.
 REPORTED = {name: "fp32" for name in KERNELS}
-REPORTED.update(strided_gather="rwkv6-3b s", strided_scatter="rwkv6-3b s")
+REPORTED.update(strided_gather="rwkv6-3b s", strided_scatter="rwkv6-3b s",
+                tiled_transpose="16384 fp32", spmv_ell="2^22 rows",
+                spmv_ell_panel_kernel="2^20 rows")
+
+# Sizes of the paper-workloads phase.
+ISMT_N = 16384
+RAGGED = (12345, 6789)
+SPMV_R, SPMV_K, SPMV_NNZ = 1 << 22, 32, 24      # rows = columns, ELL width
+PANEL_R, PANEL_STEPS, PANEL, PANEL_ROWS = 1 << 20, 4, 512, 64
+PRANK_ITERS, SSSP_ITERS, SSSP_SUB = 20, 12, 1 << 18
+WORKLOAD_KERNELS = ("tiled_transpose", "spmv_ell", "spmv_ell_panel_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -393,6 +434,12 @@ def check_kernels(ops, dev, lens, bw, flops):
             bytes=2 * BATCH * row + BATCH * 4, ops=0)
 
     records.update(check_strided(ops, dev))
+    return add_bounds(records, bw, flops)
+
+
+def add_bounds(records, bw, flops):
+    """Each record's least time on the card: its bytes over the memory
+    rate or its operations over the fp32 rate, whichever is larger."""
     for rec in records.values():
         t_bytes = rec["bytes"] / bw * 1e3
         t_ops = rec["ops"] / flops * 1e3
@@ -482,7 +529,243 @@ def check_strided(ops, dev):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: full-width serving through the scheduler
+# Phase 3: the paper's workloads
+# ---------------------------------------------------------------------------
+
+
+def ell_graph(dev, gen, rows, k, live_mean, n_cols):
+    """A random ELL matrix made on the card: Poisson(live_mean) live entries
+    a row, clipped to [1, k], columns uniform in [0, n_cols) and sorted per
+    row, values N(0, 1).  Padding entries have value 0 and column 0, as
+    ``csr_to_ell`` leaves them.  Returns (vals, cols int32, live mask)."""
+    live_n = torch.poisson(torch.full((rows,), float(live_mean), device=dev),
+                           generator=gen).clamp_(1, k).to(torch.int32)
+    live = torch.arange(k, device=dev, dtype=torch.int32) < live_n[:, None]
+    cols = torch.randint(0, n_cols, (rows, k), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cols = torch.where(live, cols, n_cols).sort(dim=1).values  # live first
+    cols = torch.where(live, cols, 0)
+    vals = torch.randn((rows, k), generator=gen, device=dev)
+    return torch.where(live, vals, 0.0), cols, live
+
+
+def csr_of(vals, cols, live, n_cols):
+    """The live entries of an ELL matrix as an ``(R, n_cols)``
+    ``torch.sparse_csr_tensor`` (int32 indices), for the library's
+    matvec."""
+    crow = torch.zeros(vals.shape[0] + 1, dtype=torch.int32,
+                       device=vals.device)
+    crow[1:] = live.sum(1).cumsum(0)
+    with warnings.catch_warnings():  # "beta state", "invariant checks off"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, cols[live], vals[live],
+                                       (vals.shape[0], n_cols))
+
+
+def check_workload_kernels(ops, ref, dev, bw, flops, graph):
+    """The transpose, ELL SpMV and panel SpMV kernels against their plain
+    versions at the workloads phase's sizes, timed; returns the records
+    keyed by (wrapper name, tag)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    records = {}
+
+    # -- tiled transpose: bitwise, square fp32 and ragged fp32 / bf16.
+    for shape, dtype in (((ISMT_N, ISMT_N), torch.float32),
+                         (RAGGED, torch.float32), (RAGGED, torch.bfloat16)):
+        x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got, want = ops.tiled_transpose(x), ref.tiled_transpose(x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want),
+                f"tiled_transpose {shape} {dtype}: not bitwise")
+        del got, want
+        if shape[0] == ISMT_N:
+            records[("tiled_transpose", REPORTED["tiled_transpose"])] = dict(
+                max_abs_err=0.0, ms=time_ms(lambda: ops.tiled_transpose(x)),
+                plain_ms=time_ms(lambda: ref.tiled_transpose(x)),
+                library_ms=time_ms(lambda: x.t().contiguous()),
+                bytes=2 * x.numel() * x.element_size(), ops=0)
+        del x
+    torch.cuda.empty_cache()
+
+    # -- ELL SpMV at the workload's size, and a ragged K with out-of-range
+    #    columns (clipped), both within TOL of the plain version.
+    vals, cols, live, x = (graph[k] for k in ("vals", "cols", "live", "x"))
+    got = ops.spmv_ell(vals, cols, x)
+    want = ref.spmv_ell(vals, cols, x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    require(torch.allclose(got, want, **TOL),
+            f"spmv_ell 2^22: max abs err {err:.3e} over {TOL}")
+    graph["y_plain"] = want
+    rv = torch.randn((4099, 5), generator=gen, device=dev)
+    rc = torch.randint(-9, 1 << 20, (4099, 5), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rx = torch.randn((1 << 20) - 7, generator=gen, device=dev)
+    require(torch.allclose(ops.spmv_ell(rv, rc, rx), ref.spmv_ell(rv, rc, rx),
+                           **TOL), "spmv_ell ragged K, clipped columns")
+    csr = csr_of(vals, cols, live, x.numel())
+    require(torch.allclose(torch.mv(csr, x), want, **TOL),
+            "cuSPARSE CSR matvec disagrees with the plain spmv")
+    nbytes = vals.numel() * 8 + x.numel() * 4 + vals.shape[0] * 4
+    records[("spmv_ell", REPORTED["spmv_ell"])] = dict(
+        max_abs_err=err, ms=time_ms(lambda: ops.spmv_ell(vals, cols, x)),
+        plain_ms=time_ms(lambda: ref.spmv_ell(vals, cols, x)),
+        library_ms=time_ms(lambda: torch.mv(csr, x)),
+        bytes=nbytes, ops=2 * int(live.sum()))
+    del got, csr
+    torch.cuda.empty_cache()
+
+    # -- panel SpMV: panel-sorted columns, plus 1 in 64 entries moved to
+    #    another panel, which the kernel must mask.
+    row_blocks, kb = PANEL_R // PANEL_ROWS, SPMV_K // PANEL_STEPS
+    n_panels = SPMV_R // PANEL
+    pids = torch.randint(0, n_panels, (row_blocks, PANEL_STEPS),
+                         generator=gen, device=dev, dtype=torch.int32)
+    base = (pids.repeat_interleave(PANEL_ROWS, 0)
+            .repeat_interleave(kb, 1) * PANEL)
+    pc = base + torch.randint(0, PANEL, (PANEL_R, SPMV_K), generator=gen,
+                              device=dev, dtype=torch.int32)
+    stray = torch.rand((PANEL_R, SPMV_K), generator=gen, device=dev) < 1 / 64
+    shift = torch.randint(1, n_panels, (PANEL_R, SPMV_K), generator=gen,
+                          device=dev, dtype=torch.int32) * PANEL
+    pc = torch.where(stray, (pc + shift) % SPMV_R, pc)
+    pv = torch.randn((PANEL_R, SPMV_K), generator=gen, device=dev)
+    run = lambda: ops.spmv_ell_panel_kernel(pv, pc, x, pids, panel=PANEL)
+    plain = lambda: ref.spmv_ell_panel(pv, pc, x, pids, panel=PANEL)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    perr = (got - want).abs().max().item()
+    require(torch.allclose(got, want, **TOL),
+            f"spmv_ell_panel_kernel: max abs err {perr:.3e} over {TOL}")
+    unmasked = ref.spmv_ell(pv, pc, x)
+    require(bool(stray.any()) and not torch.allclose(got, unmasked, **TOL),
+            "spmv_ell_panel_kernel: the stray entries were not masked")
+    inside = ~stray
+    csr = csr_of(pv, pc, inside, x.numel())
+    require(torch.allclose(torch.mv(csr, x), want, **TOL),
+            "cuSPARSE CSR matvec disagrees with the plain panel spmv")
+    panel_bytes = row_blocks * PANEL_STEPS * PANEL * 4
+    records[("spmv_ell_panel_kernel", REPORTED["spmv_ell_panel_kernel"])] = \
+        dict(max_abs_err=perr, ms=time_ms(run), plain_ms=time_ms(plain),
+             library_ms=time_ms(lambda: torch.mv(csr, x)),
+             bytes=pv.numel() * 8 + x.numel() * 4 + PANEL_R * 4,
+             ops=2 * int(inside.sum()), panel_bytes_read=panel_bytes)
+    del pv, pc, pids, base, stray, shift, got, want, unmasked, csr
+    torch.cuda.empty_cache()
+    return add_bounds(records, bw, flops)
+
+
+def make_graph(dev):
+    """The workloads' graph: the spmv matrix, its x, and the PageRank and
+    SSSP weights on the same edges."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vals, cols, live = ell_graph(dev, gen, SPMV_R, SPMV_K, SPMV_NNZ, SPMV_R)
+    x = torch.rand(SPMV_R, generator=gen, device=dev) * 2 - 1
+    out_deg = torch.bincount(cols[live], minlength=SPMV_R).float()
+    pvals = torch.where(live, 1.0 / out_deg[cols.long()].clamp(min=1), 0.0)
+    wvals = torch.where(live, vals.abs() + 0.1, 0.0)
+    return dict(vals=vals, cols=cols, live=live, x=x, pvals=pvals,
+                wvals=wvals)
+
+
+def run_workloads(W, cli, dev, graph):
+    """The main path of the phase: the workload functions as a user calls
+    them.  Returns per-workload records (wall ms of one call, the bytes it
+    must move, GB/s) and the results to check."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    res, recs = {}, {}
+
+    def timed(name, fn, nbytes, reps=3):
+        """Median wall time of ``reps`` calls, each ending in a sync."""
+        ms = []
+        for _ in range(reps):
+            ms.append(sync_ms(lambda: res.__setitem__(name, fn())))
+        wall = statistics.median(ms)
+        recs[name] = dict(ms=wall, bytes=nbytes, gb_per_s=nbytes / wall / 1e6)
+
+    a = torch.randn((ISMT_N, ISMT_N), generator=gen, device=dev)
+    timed("ismt", lambda: W.ismt(a), 2 * a.numel() * 4)
+    require(torch.equal(res["ismt"][0], a.t()), "ismt: not bitwise a.T")
+    res.pop("ismt")
+    for dtype in (torch.float32, torch.bfloat16):
+        r = torch.randn(RAGGED, generator=gen, device=dev).to(dtype)
+        out, _ = W.ismt(r)
+        require(torch.equal(out, r.t()), f"ismt {RAGGED} {dtype}: not bitwise")
+        del r, out
+    xv = torch.randn(ISMT_N, generator=gen, device=dev)
+    for name in ("gemv_col", "trmv"):
+        timed(name, lambda: getattr(W, name)(a, xv), a.numel() * 4)
+        y = res.pop(name)[0]
+        m = torch.triu(a[:64]) if name == "trmv" else a[:64]
+        want = m.double() @ xv.double()
+        rel = ((y[:64].double() - want).abs().max() / want.abs().max()).item()
+        require(bool(torch.isfinite(y).all()) and rel < 1e-5,
+                f"{name}: relative error {rel:.3e} against float64")
+        recs[name]["rel_err_vs_fp64"] = rel
+    del a, xv
+    torch.cuda.empty_cache()
+
+    vals, cols, live, x = (graph[k] for k in ("vals", "cols", "live", "x"))
+    spmv_bytes = vals.numel() * 8 + x.numel() * 4 + SPMV_R * 4
+    timed("spmv", lambda: W.spmv(vals, cols, x), spmv_bytes)
+    y, tr = res.pop("spmv")
+    require(torch.allclose(y, graph["y_plain"], **TOL),
+            "spmv: disagrees with the plain path")
+    recs["spmv"].update(tr)
+    pv = graph["pvals"]
+    timed("pagerank", lambda: W.pagerank(pv, cols, SPMV_R, iters=PRANK_ITERS,
+                                         impl="cuda"),
+          PRANK_ITERS * spmv_bytes)
+    ranks, tr = res.pop("pagerank")
+    recs["pagerank"].update(tr, rank_sum=float(ranks.sum()))
+    res["ranks"] = ranks
+    wv = graph["wvals"]
+    sweep_bytes = vals.numel() * 9 + 2 * SPMV_R * 4
+    timed("sssp", lambda: W.sssp(wv, cols, live, src=0, n=SPMV_R,
+                                 iters=SSSP_ITERS),
+          SSSP_ITERS * sweep_bytes)
+    dist, tr = res.pop("sssp")
+    require(float(dist[0]) == 0.0 and bool((dist <= 1e30).all()),
+            "sssp: distances out of range")
+    recs["sssp"].update(tr, reachable=int((dist < 1e29).sum()))
+
+    # sparse_ops' own run at n = 128, checked against numpy inside.
+    t0 = time.perf_counter()
+    rows = cli.run(dev, n=128)
+    recs["sparse_ops n=128"] = dict(seconds=time.perf_counter() - t0)
+    return recs, res, rows
+
+
+def check_workload_results(W, graph, res):
+    """The main path's results against the plain path: PageRank within
+    rtol 1e-5 (positive sums, so the error stays relative), SSSP bitwise
+    against the CPU on a 2**18-node graph: the first 2**18 rows with their
+    columns folded into [0, 2**18), so each keeps its live entries and
+    most nodes are reached."""
+    vals, cols, live = graph["vals"], graph["cols"], graph["live"]
+    want, _ = W.pagerank(graph["pvals"], cols, SPMV_R, iters=PRANK_ITERS,
+                         impl="ref")
+    got = res["ranks"]
+    err = ((got - want).abs() / want.abs()).max().item()
+    require(err < 1e-5, f"pagerank: max relative error {err:.3e} against "
+            "the plain path")
+    sub = slice(0, SSSP_SUB)
+    mask = live[sub]
+    sc = cols[sub] % SSSP_SUB
+    wv = graph["wvals"][sub]
+    d_card, _ = W.sssp(wv, sc, mask, src=0, n=SSSP_SUB, iters=SSSP_ITERS)
+    d_cpu, _ = W.sssp(wv.cpu(), sc.cpu(), mask.cpu(), src=0, n=SSSP_SUB,
+                      iters=SSSP_ITERS)
+    reached = int((d_cpu < 1e29).sum())
+    require(reached > SSSP_SUB // 2,
+            f"sssp: only {reached} of {SSSP_SUB} nodes reached on the CPU")
+    require(torch.equal(d_card.cpu(), d_cpu),
+            "sssp: the card's distances differ from the CPU's")
+    return dict(pagerank_max_rel_err=err, sssp_subgraph_reachable=reached)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: full-width serving through the scheduler
 # ---------------------------------------------------------------------------
 
 
@@ -612,7 +895,7 @@ def throughput(serve_mod, cfg, dev, params, prompts):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: speculative serving
+# Phase 5: speculative serving
 # ---------------------------------------------------------------------------
 
 
@@ -640,7 +923,7 @@ def serve_spec(serve_mod, cfg, dev, params, kv_dtype, prompts,
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: recurrent serving
+# Phase 6: recurrent serving
 # ---------------------------------------------------------------------------
 
 
@@ -747,7 +1030,40 @@ def main() -> int:
         log(f"kernel {kname} [{tag}]: " + json.dumps(rec))
     phase_s["kernels"] = time.perf_counter() - t0
 
-    # -- phase 3: paged serving, full-width yi-6b -----------------------------
+    # -- phase 3: the paper's workloads ---------------------------------------
+    t0 = time.perf_counter()
+    import repro_torch.workloads.__main__ as cli
+    from repro_torch.kernels import ref
+    from repro_torch.workloads import impls as W
+
+    graph = make_graph(dev)
+    records.update(check_workload_kernels(ops, ref, dev, bw, flops, graph))
+    for key in [k for k in records if k[0] in WORKLOAD_KERNELS]:
+        log(f"kernel {key[0]} [{key[1]}]: " + json.dumps(records[key]))
+    launches = {k: 0 for k in ops.launch_counts()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    recs, res, rows = run_workloads(W, cli, dev, graph)
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"workloads ({smi}): " + json.dumps(recs))
+    log("workloads check: " + json.dumps(check_workload_results(W, graph,
+                                                                 res)))
+    for r in rows:
+        m = r["model"]
+        log(f"sparse_ops n=128 {r['name']}: traffic eff base "
+            f"{r['base_eff']:.4f} -> pack {r['pack_eff']:.4f}; modeled "
+            f"speedup PACK {m.speedup_pack:.4f}x, IDEAL "
+            f"{m.speedup_ideal:.4f}x, PACK bus util {m.util_pack:.4f}")
+    log(f"workloads launches {counts}")
+    require(counts["tiled_transpose"] >= 1 and counts["spmv_ell"] >= 21,
+            f"workloads: a kernel of the path never launched: {counts}")
+    del graph, res
+    torch.cuda.empty_cache()
+    phase_s["paper workloads"] = time.perf_counter() - t0
+
+    # -- phase 4: paged serving, full-width yi-6b -----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = serve_mod.PagedLM(cfg, generator=gen, kv_dtype="fp32",
@@ -757,7 +1073,6 @@ def main() -> int:
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}; "
         f"{weight_gb:.2f} GB of fp32 weights; prompts "
         f"{[len(p) for p in prompts]}")
-    launches = {k: 0 for k in ops.launch_counts()}
     statics = {}
     paged_kernels = ("indirect_gather", "indirect_scatter",
                      "paged_decode_attention", "paged_prefill_attention")
@@ -789,7 +1104,7 @@ def main() -> int:
     log(f"throughput fp32 ({smi}): " + json.dumps(tp))
     phase_s["paged serving"] = time.perf_counter() - t0
 
-    # -- phase 4: speculative serving, full-width yi-6b -----------------------
+    # -- phase 5: speculative serving, full-width yi-6b -----------------------
     t0 = time.perf_counter()
     for kv_dtype in ("fp32", "int8"):
         pool = tight_pool(prompts) if kv_dtype == "int8" else None
@@ -822,7 +1137,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_s["speculative serving"] = time.perf_counter() - t0
 
-    # -- phase 5: recurrent serving, rwkv6-3b and Mamba at yi-6b width --------
+    # -- phase 6: recurrent serving, rwkv6-3b and Mamba at yi-6b width --------
     for label, rcfg, arch in (("rwkv6-3b", get_config("rwkv6-3b"), "rwkv6"),
                               ("mamba", cfg, "mamba")):
         t0 = time.perf_counter()

@@ -1,11 +1,13 @@
-"""repro_torch: the PyTorch and CUDA port of the AXI-Pack serving stack.
+"""repro_torch: the PyTorch and CUDA port of the AXI-Pack system.
 
 A second package beside the JAX reference ``repro``.  It keeps ``repro``'s
 module names (``configs``, ``core``, ``kernels``, ``models``, ``serve``),
-imports only ``torch``, numpy and the standard library, and replaces each
-Pallas TPU kernel on its serving paths (paged, speculative and recurrent)
-with a CUDA C++ kernel for Hopper (``kernels/csrc``), built with ``nvcc``
-at first use.
+adds ``workloads`` (the paper's irregular workloads, run with
+``python -m repro_torch.workloads``), imports only ``torch``, numpy and
+the standard library, and replaces each Pallas TPU kernel on its paths
+(paged, speculative and recurrent serving; the paper's workloads) with a
+CUDA C++ kernel for Hopper (``kernels/csrc``), built with ``nvcc`` at
+first use.
 
 Entry points take ``device=None``, meaning ``cuda``; see :mod:`.device`.
 """

@@ -1,13 +1,17 @@
-"""Traffic accounting of packed paged-KV streams (numpy copy of
-``repro.core.packing``).
+"""Packing semantics and traffic accounting (copy of ``repro.core.packing``).
 
-Exact bytes a serving step moves under BASE (packing-oblivious, padded,
-full-width) and PACK (paged, packed) semantics.  The scheduler records one
-:class:`Traffic` per step; the numbers are computed from shapes and
-lengths on the host, so they are the same whichever device runs the step.
-Only the serving functions are copied here (paged, speculative verify
-and recurrent); the jnp ``pack_*`` /
-``unpack_*`` helpers of the reference are not needed by the port.
+``pack_*`` / ``unpack_*`` are the reference semantics of AXI-Pack bursts,
+what the data looks like after the beat packer has run, as plain tensor
+functions: ``unpack_*`` returns a new tensor, as the reference's functional
+``.at[].set`` does.  :func:`strided_traffic` and :func:`indirect_traffic`
+count the bytes one strided or indirect stream moves under BASE and PACK;
+the paper's workloads (:mod:`repro_torch.workloads`) report them.
+
+The rest is the serving accounting: the exact bytes a serving step moves
+under BASE (packing-oblivious, padded, full-width) and PACK (paged,
+packed) semantics.  The scheduler records one :class:`Traffic` per step;
+the numbers are computed from shapes and lengths on the host, so they are
+the same whichever device runs the step.
 """
 from __future__ import annotations
 
@@ -15,9 +19,16 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
+    "pack_strided",
+    "unpack_strided",
+    "pack_indirect",
+    "unpack_indirect",
     "Traffic",
+    "strided_traffic",
+    "indirect_traffic",
     "packed_token_bytes",
     "paged_decode_traffic",
     "prefill_page_counts",
@@ -27,6 +38,73 @@ __all__ = [
     "recurrent_decode_traffic",
     "recurrent_prefill_traffic",
 ]
+
+
+def _strided_rows(base: int, stride: int, count: int,
+                  device: torch.device) -> torch.Tensor:
+    return base + stride * torch.arange(count, device=device)
+
+
+def pack_strided(src: torch.Tensor, base: int, stride: int,
+                 count: int) -> torch.Tensor:
+    """Gather ``count`` rows of ``src`` at ``base + k*stride`` into a dense
+    block.
+
+    ``src`` has shape (n_rows, *row); the result has shape (count, *row).
+    With stride == 1 this is a contiguous slice whose start is clamped so
+    the slice lies inside ``src``, as ``lax.dynamic_slice`` clamps it.
+    """
+    if stride == 1:
+        base = min(max(base, 0), src.shape[0] - count)
+        return src[base:base + count].clone()
+    return src[_strided_rows(base, stride, count, src.device)]
+
+
+def unpack_strided(dst: torch.Tensor, packed: torch.Tensor, base: int,
+                   stride: int) -> torch.Tensor:
+    """A copy of ``dst`` with the rows of ``packed`` at ``base + k*stride``
+    (a contiguous start clamped as in :func:`pack_strided`)."""
+    count = packed.shape[0]
+    out = dst.clone()
+    if stride == 1:
+        base = min(max(base, 0), dst.shape[0] - count)
+        out[base:base + count] = packed
+    else:
+        out[_strided_rows(base, stride, count, dst.device)] = packed
+    return out
+
+
+def pack_indirect(src: torch.Tensor, indices: torch.Tensor,
+                  base: int = 0) -> torch.Tensor:
+    """Gather rows ``src[base + indices[k]]`` into a dense block.
+
+    The index tensor is memory-resident (the in-memory indexed semantics of
+    ``vlimxei``): callers never materialize per-element addresses.
+    """
+    return src[base + indices.long()]
+
+
+def unpack_indirect(dst: torch.Tensor, packed: torch.Tensor,
+                    indices: torch.Tensor, base: int = 0,
+                    mode: str = "set") -> torch.Tensor:
+    """A copy of ``dst`` with the rows of ``packed`` at
+    ``base + indices[k]``.
+
+    ``mode='set'`` mirrors the hardware write converter (last-writer-wins
+    for duplicate indices, order unspecified); ``mode='add'`` accumulates
+    (``index_add``), as MoE combine and embedding gradients use it.
+    """
+    idx = base + indices.long()
+    if mode == "add":
+        return dst.index_add(0, idx, packed)
+    out = dst.clone()
+    out[idx] = packed
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Traffic accounting: exact bytes moved under each system's semantics.
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
@@ -59,6 +137,32 @@ class Traffic:
     def pack_efficiency(self) -> float:
         tot = self.pack_bytes + self.index_bus_bytes_pack
         return self.useful_bytes / tot if tot else 1.0
+
+
+def strided_traffic(
+    count: int, elem_bytes: int, stride: int, granule_bytes: int = 32
+) -> Traffic:
+    """Traffic for a strided stream on a ``granule_bytes``-wide bus."""
+    useful = count * elem_bytes
+    if stride == 1:
+        moved = int(np.ceil(useful / granule_bytes)) * granule_bytes
+        return Traffic(useful, moved, moved, 0)
+    base = count * granule_bytes                      # one narrow beat/elem
+    pack = int(np.ceil(useful / granule_bytes)) * granule_bytes
+    return Traffic(useful, base, pack, 0)
+
+
+def indirect_traffic(
+    count: int, elem_bytes: int, index_bytes: int, granule_bytes: int = 32
+) -> Traffic:
+    """Traffic for an indirect stream; indices are packed lines either way."""
+    useful = count * elem_bytes
+    idx = int(np.ceil(count * index_bytes / granule_bytes)) * granule_bytes
+    base = count * granule_bytes
+    pack = int(np.ceil(useful / granule_bytes)) * granule_bytes
+    # PACK fetches indices endpoint-side: they cost memory bandwidth but not
+    # core-side bus bytes; we still report them for the HBM energy proxy.
+    return Traffic(useful, base, pack, idx, 0)
 
 
 def packed_token_bytes(

@@ -7,7 +7,10 @@ in memory.  The paged serving path builds one :class:`IndirectStream` per
 sequence and step, whose indices are the page-table entries the CUDA
 kernels resolve on the card; the recurrent path one :class:`StridedStream`
 per state tensor, slot and direction, whose base and stride are the whole
-address the strided converter kernels are launched with.
+address the strided converter kernels are launched with.  The paper's
+workload models (:mod:`repro_torch.workloads.paper`) build them per loop
+iteration, and :func:`word_addresses` maps them onto the banked endpoint
+of :mod:`.banksim`.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ __all__ = [
     "share_table_streams",
     "verify_table_streams",
     "recurrent_state_streams",
+    "word_addresses",
 ]
 
 
@@ -393,3 +397,22 @@ def recurrent_state_streams(
                     )
                 )
     return tuple(out)
+
+
+def word_addresses(
+    stream: StreamDescriptor, word_bits: int = 32
+) -> np.ndarray:
+    """Map a stream's element offsets to memory *word* addresses.
+
+    The banked controller operates on W-bit words (the bank width); an element
+    smaller than a word still occupies one word access, while an element
+    spanning multiple words issues several.  Returns the flat sequence of word
+    addresses in stream order (used by the bank-conflict simulator).
+    """
+    offs = stream.element_offsets()
+    if stream.elem_bits <= word_bits:
+        scale = word_bits // stream.elem_bits
+        return offs // scale
+    words_per_elem = stream.elem_bits // word_bits
+    base_words = offs * words_per_elem
+    return (base_words[:, None] + np.arange(words_per_elem)[None, :]).reshape(-1)

@@ -1,7 +1,8 @@
-"""Serving kernels of the port.
+"""Kernels of the port.
 
 ``ops`` dispatches each call to a hand-written CUDA kernel (``csrc/``,
 built by ``build``) for GPU tensors or to its plain PyTorch version
 (``ref``) for CPU tensors: paged decode, paged prefill (also launched as
-speculative verify) and the indirect and strided stream converters.
+speculative verify), the indirect and strided stream converters, and the
+paper workloads' tiled transpose, ELL SpMV and panel-streamed ELL SpMV.
 """

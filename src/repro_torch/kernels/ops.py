@@ -1,4 +1,4 @@
-"""Dispatch layer: the serving kernels behind one call each.
+"""Dispatch layer: the port's kernels behind one call each.
 
 The functions keep the names and argument order of ``repro.kernels.ops``.
 Each takes ``impl`` in ``{'cuda', 'ref'}``:
@@ -20,7 +20,13 @@ read alike.  ``paged_verify`` launches the prefill kernel with
 ``starts = lengths``; ``speculative_accept`` is plain integer tensor code
 on any device, as in the reference, which has no kernel for it.
 
-Each of the seven kernel wrappers counts its launches in an integer
+The paper's workloads run through ``tiled_transpose`` (ismt) and
+``spmv_ell`` (spmv, pagerank); ``spmv_ell_panel_kernel`` is the panel-
+streamed SpMV, which the reference calls directly since its ``ops`` has no
+wrapper for it.  Unlike the reference's wrappers, these pad nothing: the
+kernels mask the ragged edge of a tile or row block.
+
+Each of the ten kernel wrappers counts its launches in an integer
 attribute, ``launches``, raised by one only where the kernel is launched
 (:func:`launch_counts`, :func:`reset_launch_counts`).  ``paged_verify``
 counts under its own name, not the prefill kernel's.
@@ -51,8 +57,11 @@ __all__ = [
     "recurrent_state_write",
     "reset_launch_counts",
     "speculative_accept",
+    "spmv_ell",
+    "spmv_ell_panel_kernel",
     "strided_gather",
     "strided_scatter",
+    "tiled_transpose",
 ]
 
 _IMPLS = ("cuda", "ref")
@@ -87,6 +96,9 @@ _SIGNATURES = {  # C entry: (library, argument types)
     "repro_paged_decode": ("paged_decode", [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
     "repro_paged_prefill": ("paged_prefill",
                             [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+    "repro_tiled_transpose": ("transpose", [_P] * 2 + [_L] * 2 + [_I, _P]),
+    "repro_spmv_ell": ("spmv", [_P] * 4 + [_L] + [_I] * 2 + [_P]),
+    "repro_spmv_ell_panel": ("spmv", [_P] * 5 + [_L] + [_I] * 5 + [_P]),
 }
 
 
@@ -598,13 +610,132 @@ def paged_kv_write_chunk(
 
 
 # ---------------------------------------------------------------------------
+# Workload kernels: tiled transpose and ELL SpMV
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = 2**31 - 1
+
+
+@_counted
+def tiled_transpose(x: torch.Tensor, block: int = 128,
+                    impl: str = "cuda") -> torch.Tensor:
+    """``x.T`` of a 2-D tensor, as a new contiguous ``(c, r)`` tensor.
+
+    The kernel moves elements of 1, 2, 4 or 8 bytes as raw bits, so the
+    result is bitwise for every dtype it takes.  ``block`` is the
+    reference's tile; the kernel's tile is fixed by shared memory (32 x 32)
+    and masks the ragged edge, so ``block`` only has to be positive.
+    """
+    _check(block > 0, f"tiled_transpose: block {block} <= 0")
+    if not _use_kernel(impl, x):
+        return ref.tiled_transpose(x)
+    _check(x.dim() == 2, f"tiled_transpose: x must be 2-D, got "
+           f"{tuple(x.shape)}")
+    _check(x.element_size() in (1, 2, 4, 8),
+           f"tiled_transpose: no kernel for {x.element_size()}-byte "
+           f"elements ({x.dtype})")
+    x = x.contiguous()
+    r, c = x.shape
+    out = torch.empty((c, r), dtype=x.dtype, device=x.device)
+    _launch("repro_tiled_transpose", _ptr(x), _ptr(out), r, c,
+            x.element_size(), _stream(x))
+    tiled_transpose.launches += 1
+    return out
+
+
+def _check_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+               name: str):
+    """The ELL operands as the kernels take them: contiguous fp32 values
+    and x, int32 columns of the same (R, K) shape, on x's device."""
+    _check(vals.dtype == torch.float32 and x.dtype == torch.float32,
+           f"{name}: the kernel takes float32 vals and x, got {vals.dtype} "
+           f"and {x.dtype}")
+    _check(vals.dim() == 2 and tuple(cols.shape) == tuple(vals.shape)
+           and x.dim() == 1,
+           f"{name}: vals and cols must be (R, K) and x (C,), got "
+           f"{tuple(vals.shape)}, {tuple(cols.shape)}, {tuple(x.shape)}")
+    _check(vals.device == x.device, f"{name}: vals on {vals.device}, x on "
+           f"{x.device}")
+    _check(0 < x.shape[0] <= _INT32_MAX and vals.shape[1] <= _INT32_MAX,
+           f"{name}: C = {x.shape[0]} and K = {vals.shape[1]} must lie in "
+           f"[1, 2**31 - 1]")
+    return vals.contiguous(), _int32(cols, x.device), x.contiguous()
+
+
+@_counted
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+             row_block: int = 8, impl: str = "cuda") -> torch.Tensor:
+    """y = A @ x with A as padded ELL ``vals``/``cols`` ``(R, K)``, x
+    ``(C,)`` float32; columns are clamped to ``[0, C-1]``.
+
+    ``row_block`` is the reference's rows per grid step; the kernel sizes
+    its thread groups to K and masks rows past R, so any R works and
+    ``row_block`` only has to be positive.
+    """
+    _check(row_block > 0, f"spmv_ell: row_block {row_block} <= 0")
+    if not _use_kernel(impl, x):
+        return ref.spmv_ell(vals, cols, x)
+    vals, cols, x = _check_ell(vals, cols, x, "spmv_ell")
+    r, k = vals.shape
+    y = torch.empty(r, dtype=torch.float32, device=x.device)
+    _launch("repro_spmv_ell", _ptr(vals), _ptr(cols), _ptr(x), _ptr(y), r, k,
+            x.shape[0], _stream(x))
+    spmv_ell.launches += 1
+    return y
+
+
+@_counted
+def spmv_ell_panel_kernel(vals: torch.Tensor, cols: torch.Tensor,
+                          x: torch.Tensor, panel_ids: torch.Tensor,
+                          panel: int = 512, impl: str = "cuda"
+                          ) -> torch.Tensor:
+    """Panel-streamed SpMV: x arrives one ``panel``-wide slice per step.
+
+    ``panel_ids`` ``(row_blocks, steps)`` names the x panel each step of
+    each row block needs (the indirect stream descriptor driving the x
+    copies).  Step ``s`` covers columns ``s*K/steps ..`` of the block's
+    rows; an entry outside its step's panel is masked.  Raises where the
+    reference asserts or cannot tile: ``R % row_blocks``, ``K % steps``,
+    ``C % panel``.
+    """
+    r, k = vals.shape
+    _check(panel_ids.dim() == 2, "spmv_ell_panel_kernel: panel_ids must be "
+           "(row_blocks, steps)")
+    row_blocks, steps = panel_ids.shape
+    _check(row_blocks > 0 and r % row_blocks == 0,
+           f"spmv_ell_panel_kernel: R = {r} is not a multiple of "
+           f"{row_blocks} row blocks")
+    _check(steps > 0 and k % steps == 0,
+           f"spmv_ell_panel_kernel: K = {k} is not a multiple of {steps} "
+           f"steps")
+    _check(panel > 0 and x.shape[0] % panel == 0,
+           f"spmv_ell_panel_kernel: C = {x.shape[0]} is not a multiple of "
+           f"the panel {panel}")
+    if not _use_kernel(impl, x):
+        return ref.spmv_ell_panel(vals, cols, x, panel_ids, panel)
+    vals, cols, x = _check_ell(vals, cols, x, "spmv_ell_panel_kernel")
+    pids = _int32(panel_ids, x.device)
+    row_block = r // row_blocks
+    smem = (2 * panel + row_block) * 4
+    _check(smem <= 232448, f"spmv_ell_panel_kernel: two panels of {panel} "
+           f"and {row_block} row sums need {smem} bytes of shared memory, "
+           f"more than a block's 232448")
+    y = torch.empty(r, dtype=torch.float32, device=x.device)
+    _launch("repro_spmv_ell_panel", _ptr(vals), _ptr(cols), _ptr(x),
+            _ptr(pids), _ptr(y), row_blocks, row_block, k, steps, panel,
+            x.shape[0], _stream(x))
+    spmv_ell_panel_kernel.launches += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
 # Launch counts
 # ---------------------------------------------------------------------------
 
-#: The seven kernel wrappers, each with its ``launches`` count.
+#: The ten kernel wrappers, each with its ``launches`` count.
 KERNELS = (indirect_gather, indirect_scatter, paged_decode_attention,
            paged_prefill_attention, paged_verify, strided_gather,
-           strided_scatter)
+           strided_scatter, tiled_transpose, spmv_ell, spmv_ell_panel_kernel)
 
 
 def launch_counts() -> Dict[str, int]:

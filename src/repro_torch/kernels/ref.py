@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serving kernels (the port's oracles).
+"""Plain PyTorch versions of the port's kernels (the port's oracles).
 
 Each function states in tensor operations what one CUDA kernel of
 ``kernels/csrc`` computes, mirroring the JAX oracle of the same name in
@@ -15,9 +15,14 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
+    "tiled_transpose",
+    "spmv_ell",
+    "spmv_ell_panel",
+    "csr_to_ell",
     "strided_gather",
     "strided_scatter",
     "recurrent_state_read",
@@ -34,6 +39,87 @@ __all__ = [
     "quantize_kv",
     "dequantize_pages",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Tiled in-situ matrix transpose (ismt workload)
+# ---------------------------------------------------------------------------
+
+
+def tiled_transpose(x: torch.Tensor) -> torch.Tensor:
+    """The last two axes swapped, as a new contiguous tensor."""
+    return x.transpose(-1, -2).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Sparse matrix-vector product (spmv / prank workloads)
+# ---------------------------------------------------------------------------
+
+
+def spmv_ell(vals: torch.Tensor, cols: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """ELL-format SpMV: y[r] = sum_k vals[r,k] * x[cols[r,k]].
+
+    Column indices are clamped to ``[0, len(x) - 1]`` (the reference's
+    ``take(mode='clip')``).  Padding entries carry ``vals == 0``, so they
+    contribute nothing.
+    """
+    xg = x[cols.long().clamp(0, x.shape[0] - 1)]
+    return (vals * xg).sum(-1)
+
+
+def spmv_ell_panel(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                   panel_ids: torch.Tensor, panel: int = 512) -> torch.Tensor:
+    """Panel-streamed ELL SpMV, step by step as ``_spmv_panel_body``.
+
+    ``panel_ids`` is ``(row_blocks, steps)``: step ``s`` of row block ``b``
+    covers the columns ``s*kb .. (s+1)*kb - 1`` of the block's rows
+    (``kb = K / steps``) and gathers them from the ``panel``-wide slice of
+    ``x`` at ``panel_ids[b, s] * panel``, the id clamped to the panels of
+    ``x``.  An entry whose column lies outside that panel is masked to
+    zero, not clipped, and each step's partial row sum is added to ``y`` in
+    step order.
+    """
+    r, k = vals.shape
+    row_blocks, steps = panel_ids.shape
+    row_block, kb = r // row_blocks, k // steps
+    pid = panel_ids.long().clamp(0, x.shape[0] // panel - 1)
+    base = (pid * panel).repeat_interleave(row_block, 0)       # (R, steps)
+    base = base.repeat_interleave(kb, 1)                       # (R, K)
+    local = cols.long() - base
+    valid = (local >= 0) & (local < panel)
+    xg = x[base + local.clamp(0, panel - 1)]
+    contrib = torch.where(valid, vals * xg, torch.zeros_like(vals))
+    partial = contrib.view(r, steps, kb).sum(-1)               # (R, steps)
+    y = torch.zeros(r, dtype=vals.dtype, device=vals.device)
+    for s in range(steps):
+        y = y + partial[:, s]
+    return y
+
+
+def csr_to_ell(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
+               n_rows: int, pad_to: Optional[int] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """CSR arrays to padded ELL ``(vals, cols)`` numpy arrays.
+
+    Row ``r``'s nonzeros fill the leading ``indptr[r+1] - indptr[r]``
+    entries of its ELL row; the rest are zeros (value and column 0).  The
+    width is the longest row, or ``pad_to``.
+    """
+    indptr = np.asarray(indptr)
+    counts = np.diff(indptr)
+    k = int(counts.max()) if pad_to is None else pad_to
+    vals = np.zeros((n_rows, k), dtype=data.dtype)
+    cols = np.zeros((n_rows, k), dtype=indices.dtype)
+    lo, hi = int(indptr[0]), int(indptr[n_rows])
+    rows = np.repeat(np.arange(n_rows), counts[:n_rows])
+    pos = np.arange(lo, hi) - indptr[rows]
+    if pos.size and int(pos.max()) >= k:
+        raise ValueError(f"a row has {int(pos.max()) + 1} nonzeros, more "
+                         f"than the ELL width {k}")
+    vals[rows, pos] = data[lo:hi]
+    cols[rows, pos] = indices[lo:hi]
+    return vals, cols
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's boundary: what it imports, where it runs, how it builds.
 
 ``src/repro_torch`` and ``chip_smoke.py`` import ``torch``, numpy and the
-standard library only — never ``jax`` and nothing of the JAX package
-``repro``.  Every entry point defaults to the GPU and raises where there
+standard library only — never ``jax``, nothing of the JAX package
+``repro`` and nothing of ``benchmarks`` (which imports both).  Every entry point defaults to the GPU and raises where there
 is none, and the kernel build raises, naming the command, where ``nvcc``
 is missing or fails; nothing falls back to the CPU quietly.
 """
@@ -42,7 +42,8 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_repro(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+            f"{path}: {name}"
 
 
 def test_port_files_are_scanned():
@@ -52,16 +53,20 @@ def test_port_files_are_scanned():
             "serve/scheduler.py", "serve/drafter.py",
             "serve/recurrent_lm.py", "models/common.py", "models/rwkv6.py",
             "models/mamba.py", "configs/rwkv6_3b.py", "core/packing.py",
-            "core/streams.py", "chip_smoke.py"} <= names
+            "core/streams.py", "core/busmodel.py", "core/banksim.py",
+            "workloads/impls.py", "workloads/paper.py",
+            "workloads/__main__.py", "chip_smoke.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.core, "
             "repro_torch.models.rwkv6, repro_torch.models.mamba, "
             "repro_torch.serve.drafter, repro_torch.serve.recurrent_lm, "
-            "repro_torch.kernels.ops, repro_torch.kernels.build; "
-            "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "repro_torch.kernels.ops, repro_torch.kernels.build, "
+            "repro_torch.workloads.impls, repro_torch.workloads.paper, "
+            "repro_torch.workloads.__main__; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
@@ -85,6 +90,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         recurrent_params_from_numpy(np.zeros((2, 2)), {})
     # Asked for by name, the CPU works.
     PagedKVCache.create(cfg, batch=2, max_len=16, page=4, device="cpu")
+
+
+def test_workloads_entry_point_raises_without_a_card():
+    """``python -m repro_torch.workloads`` runs on the GPU unless asked for
+    the CPU: with no card it fails, naming the GPU, before any output."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.workloads"],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode != 0
+    assert "GPU" in res.stderr and "device='cpu'" in res.stderr
+    assert res.stdout == ""
+
+
+def test_build_sources_name_every_kernel_file():
+    assert set(build.SOURCES) == {
+        "stream_converters", "paged_decode", "paged_prefill", "spmv",
+        "transpose"}
+    assert {p.stem for p in build.CSRC.glob("*.cu")} == set(build.SOURCES)
 
 
 def test_fp32_numerics_are_pinned():
