@@ -7,7 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 Phases, each of which fails the run (nonzero exit) if anything is off:
 
-1. Setup: the card's name and power limit; the five CUDA sources of
+1. Setup: the card's name and power limit; the six CUDA sources of
    ``src/repro_torch/kernels/csrc`` built with ``nvcc`` in parallel.
 2. Kernels: each of the seven serving kernels against its plain PyTorch
    version on the card.  The paged ones at the yi-6b serving shapes (H=32, KVH=4,
@@ -60,6 +60,26 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    bitwise; every admission zeroes its slot through the strided scatter,
    and a live slot read back through ``recurrent_state_read`` (the strided
    gather) must equal the pool's own view of it.
+7. Training: first the flash-attention kernels (forward, forward with
+   lse, two-pass backward) against their plain versions: in fp32 at
+   S=1024 within rtol = atol = 2e-5 (forward) and 1e-4 (backward), and
+   on a ragged non-causal S=1000 and a causal window of 256 in fp32, also
+   against ``ref.mha``; at the training path's shapes in bf16 (B=2, 32/4
+   heads, S=4096, D=128, causal, as (B, S, H, D) views) within the same
+   plus 2 bf16 steps of each plain value (each side rounds once); kernel,
+   plain version and ``scaled_dot_product_attention`` (forward, backward)
+   timed with CUDA events.  Then yi-6b at full width cut to 4 layers
+   (random weights from a seeded generator, fp32 params, bf16 compute,
+   remat), sequences of 4096 from the synthetic corpus, global batch 4
+   in 2 microbatches: the plain path's first step and a forward-only loss
+   against the kernels' (losses within 1e-5 relative, the gradient norm
+   within 1e-3); the kernel path's gradients of one batch, twice, equal
+   leaf by leaf; 6 AdamW steps under ``TrainController`` with a
+   checkpoint every 3 steps (every loss finite, the flash kernels
+   launched); one more step timed and profiled (idle share); then a
+   fresh controller resumes from the step-3 checkpoint, as after a kill
+   at step 4, and runs until a simulated kill at step 5: its losses must
+   equal the straight run's bit for bit.
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
@@ -69,6 +89,7 @@ no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -92,12 +113,13 @@ N_REQUESTS, MAX_NEW = 8, 32
 PROMPT_LENS = (17, 300)
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# device-memory bytes/s and float32 FLOP/s outside the tensor cores.
+# device-memory bytes/s, float32 FLOP/s outside the tensor cores, and
+# bf16 tensor-core FLOP/s (the rate for work on bf16 inputs).
 PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),       # SXM, "NVIDIA H100 80GB HBM3"
-    "H200": (4.8e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),       # SXM, "NVIDIA H100 80GB HBM3"
+    "H200": (4.8e12, 67e12, 989e12),
 }
 
 KERNELS = {
@@ -132,6 +154,15 @@ KERNELS = {
     "spmv_ell_panel_kernel": (
         "src/repro_torch/kernels/csrc/spmv.cu",
         "src/repro/kernels/spmv.py:82"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:110"),
+    "flash_attention_fwd": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:160"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:312"),
 }
 #: The record of each kernel that the JSON line reports: the paged ones at
 #: fp32, the strided ones at their widest burst (rwkv6-3b's wkv state), the
@@ -139,7 +170,9 @@ KERNELS = {
 REPORTED = {name: "fp32" for name in KERNELS}
 REPORTED.update(strided_gather="rwkv6-3b s", strided_scatter="rwkv6-3b s",
                 tiled_transpose="16384 fp32", spmv_ell="2^22 rows",
-                spmv_ell_panel_kernel="2^20 rows")
+                spmv_ell_panel_kernel="2^20 rows", flash_attention="path bf16",
+                flash_attention_fwd="path bf16",
+                flash_attention_bwd="path bf16")
 
 # Sizes of the paper-workloads phase.
 ISMT_N = 16384
@@ -148,6 +181,25 @@ SPMV_R, SPMV_K, SPMV_NNZ = 1 << 22, 32, 24      # rows = columns, ELL width
 PANEL_R, PANEL_STEPS, PANEL, PANEL_ROWS = 1 << 20, 4, 512, 64
 PRANK_ITERS, SSSP_ITERS, SSSP_SUB = 20, 12, 1 << 18
 WORKLOAD_KERNELS = ("tiled_transpose", "spmv_ell", "spmv_ell_panel_kernel")
+
+# The training phase: yi-6b at full width cut to 4 layers, sequences of
+# train_4k's length, global batch 4 in 2 microbatches, AdamW; checkpoints
+# every 3 steps, and a resume from step 3 as after a preemption at step 4.
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4, 2, 6
+TRAIN_CKPT_EVERY, TRAIN_PREEMPT = 3, 4
+FLASH_KERNELS = ("flash_attention", "flash_attention_fwd",
+                 "flash_attention_bwd")
+# Flash kernels against their plain versions: float32 outputs within these;
+# bf16 outputs within the same plus 2 bf16 steps (ulps) of the plain value,
+# since each side rounds its float32 result to bf16 once.
+FP32_FWD_TOL = dict(rtol=2e-5, atol=2e-5)
+FP32_BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_ULPS = 2
+# Kernel path against plain path: the losses (forward-only and step 0),
+# then the step-0 gradient norm.
+LOSS_RTOL = 1e-5
+GRAD_NORM_RTOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -437,14 +489,16 @@ def check_kernels(ops, dev, lens, bw, flops):
     return add_bounds(records, bw, flops)
 
 
-def add_bounds(records, bw, flops):
+def add_bounds(records, bw, flops, rate="fp32"):
     """Each record's least time on the card: its bytes over the memory
-    rate or its operations over the fp32 rate, whichever is larger."""
+    rate or its operations over ``flops`` (the peak for the inputs' type,
+    named by ``rate``), whichever is larger."""
     for rec in records.values():
         t_bytes = rec["bytes"] / bw * 1e3
         t_ops = rec["ops"] / flops * 1e3
         rec["bound_ms"] = max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bound_rate"] = rate
     return records
 
 
@@ -979,6 +1033,373 @@ def serve_recurrent(serve_mod, cfg, arch, dev, prompts):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: training, yi-6b width
+# ---------------------------------------------------------------------------
+
+
+def tree_digest(leaves) -> str:
+    """A short digest of ``[(path, tensor)]``'s bits: two runs that print
+    the same one computed the same tensors, bit for bit (up to a sum's
+    collisions)."""
+    import hashlib
+
+    sums = []
+    for path, t in leaves:
+        bits = t.detach().contiguous().view(torch.int32).to(torch.int64)
+        weight = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+        sums.append([path, int((bits.flatten() * weight).sum())])
+    return hashlib.sha256(json.dumps(sums).encode()).hexdigest()[:16]
+
+
+def visible_pairs(sq, skv, causal, window):
+    """The (query, key) pairs the attention mask lets through: the work
+    this input needs, which the bound counts."""
+    n = 0
+    for i in range(sq):
+        hi = min(skv, i + 1) if causal else skv
+        lo = max(0, i - window + 1) if window is not None else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def flash_inputs(dev, gen, b, h, kvh, sq, d, dtype, skv=None):
+    """q, k, v, do as the training path hands them to the kernels:
+    (B, heads, S, D) views of (B, S, heads, D) tensors."""
+    skv = sq if skv is None else skv
+
+    def draw(s, heads):
+        return torch.randn((b, s, heads, d), generator=gen,
+                           device=dev).to(dtype).transpose(1, 2)
+
+    return draw(sq, h), draw(skv, kvh), draw(skv, kvh), draw(sq, h)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at each |x| (8 significant bits)."""
+    _, exp = torch.frexp(x.float().abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+def flash_case(ops, ref, inputs, causal, window, fwd_tol, bwd_tol, tag,
+               oracle):
+    """Kernels 8, 9 and 10 against their plain versions on one input (and
+    against ``ref.mha`` where ``oracle``): float32 outputs within the
+    float32 tolerance, bf16 outputs within it plus ``BF16_ULPS`` bf16
+    steps of the plain value.  Returns the max abs errors and each
+    output's largest share of its tolerance."""
+    q, k, v, do = inputs
+    kw = dict(causal=causal, window=window)
+    with torch.no_grad():
+        o8 = ops.flash_attention(q, k, v, **kw)
+    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    po, plse = ops.flash_attention_fwd(q, k, v, impl="ref", **kw)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    pgrads = ops.flash_attention_bwd(q, k, v, o, lse, do, impl="ref", **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(o8, o), f"flash {tag}: kernels 8 and 9 differ in o")
+    errs, shares = {}, {}
+
+    def close(name, got, want, tol):
+        bf16 = got.dtype == torch.bfloat16
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        allowed = tol["atol"] + tol["rtol"] * want.abs()
+        if bf16:
+            allowed = allowed + BF16_ULPS * bf16_ulp(want)
+        err = diff.max().item()
+        share = (diff / allowed).max().item()
+        require(share <= 1.0,
+                f"flash {tag} {name}: max abs err {err:.3e}, "
+                f"{share:.3f} of the tolerance ({tol}"
+                f"{f' + {BF16_ULPS} bf16 ulps' if bf16 else ''})")
+        errs[name] = err
+        shares[name] = share
+
+    close("o", o, po, fwd_tol)
+    close("lse", lse, plse, fwd_tol)
+    if oracle:
+        close("o vs mha", o, ref.mha(q, k, v, **kw), fwd_tol)
+    for name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
+        close(name, g, pg, bwd_tol)
+    return errs, shares
+
+
+def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
+    """Kernels 8-10 against their plain versions: at the training path's
+    shapes in bf16 (timed, with SDPA as the library call), fp32 at
+    S = 1024, a ragged non-causal S = 1000 and a causal window of 256 in
+    fp32 (the last two also against ``ref.mha``).  The bound of the
+    path's bf16 work is taken at the bf16 tensor-core rate ``bf16_flops``,
+    the card's peak for that type, although the kernels do their
+    arithmetic in float32 on the FMA units; ``bound_fp32_ms`` is the same
+    work at the float32 rate ``flops``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg = get_config("yi-6b")
+    b, h, kvh, d = TRAIN_BATCH // TRAIN_ACCUM, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    seq = SHAPES["train_4k"].seq_len
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records = {}
+    cases = [
+        ("path bf16", dict(sq=seq, dtype=torch.bfloat16), True, None,
+         FP32_FWD_TOL, FP32_BWD_TOL, False),
+        ("fp32 1024", dict(sq=1024, dtype=torch.float32), True, None,
+         FP32_FWD_TOL, FP32_BWD_TOL, False),
+        ("fp32 ragged 1000 non-causal", dict(sq=1000, dtype=torch.float32),
+         False, None, FP32_FWD_TOL, FP32_BWD_TOL, True),
+        ("fp32 1024 window 256", dict(sq=1024, dtype=torch.float32), True,
+         256, FP32_FWD_TOL, FP32_BWD_TOL, True),
+    ]
+    for tag, shape, causal, window, ftol, btol, oracle in cases:
+        inputs = flash_inputs(dev, gen, b, h, kvh, d=d, **shape)
+        errs, shares = flash_case(ops, ref, inputs, causal, window, ftol,
+                                  btol, tag, oracle)
+        log(f"flash {tag}: max abs errors " + json.dumps(errs)
+            + "; largest share of the tolerance " + json.dumps(shares))
+        fwd_err = max(v for k_, v in errs.items() if k_.startswith("o"))
+        bwd_err = max(errs[k_] for k_ in ("dq", "dk", "dv"))
+        for kname, err in (("flash_attention", fwd_err),
+                           ("flash_attention_fwd", max(fwd_err, errs["lse"])),
+                           ("flash_attention_bwd", bwd_err)):
+            records[(kname, tag)] = dict(max_abs_err=err, ms=None,
+                                         plain_ms=None, library_ms=None,
+                                         bytes=0, ops=0)
+        if tag != "path bf16":
+            continue
+        q, k, v, do = inputs
+        sq = q.shape[2]
+        o, lse = ops.flash_attention_fwd(q, k, v)
+        pairs = b * h * visible_pairs(sq, sq, True, None)
+        qo_bytes = q.numel() * q.element_size()
+        kv_bytes = k.numel() * k.element_size()
+        lse_bytes = lse.numel() * 4
+        fwd_bytes = 2 * qo_bytes + 2 * kv_bytes
+        sdpa = lambda *t: F.scaled_dot_product_attention(  # noqa: E731
+            *t, is_causal=True, enable_gqa=True)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, leaves, do, retain_graph=True)
+        sdpa_fwd_ms = time_ms(lambda: sdpa(q, k, v))
+        plain_fwd_ms = time_ms(
+            lambda: ops.flash_attention_fwd(q, k, v, impl="ref"))
+        records[("flash_attention", tag)].update(
+            ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+            plain_ms=plain_fwd_ms, library_ms=sdpa_fwd_ms, bytes=fwd_bytes,
+            ops=4 * d * pairs)
+        records[("flash_attention_fwd", tag)].update(
+            ms=time_ms(lambda: ops.flash_attention_fwd(q, k, v)),
+            plain_ms=plain_fwd_ms, library_ms=sdpa_fwd_ms,
+            bytes=fwd_bytes + lse_bytes, ops=4 * d * pairs)
+        records[("flash_attention_bwd", tag)].update(
+            ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do)),
+            plain_ms=time_ms(lambda: ops.flash_attention_bwd(
+                q, k, v, o, lse, do, impl="ref")),
+            library_ms=time_ms(sdpa_bwd),
+            library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                sdpa(*leaves), leaves, do)),
+            bytes=4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+            ops=10 * d * pairs)
+        del out, leaves
+    add_bounds(records, bw, bf16_flops,
+               rate=f"bf16 tensor core {bf16_flops / 1e12:g} TFLOP/s")
+    for kname in FLASH_KERNELS:
+        rec = records[(kname, "path bf16")]
+        # What the kernels' float32 arithmetic could reach at best.
+        rec["bound_fp32_ms"] = rec["ops"] / flops * 1e3
+    torch.cuda.empty_cache()
+    return records
+
+
+def run_training(dev):
+    """Phase 7: yi-6b at full width, 4 layers, through the port's training
+    path (``make_train_step`` under ``TrainController``).  Returns (the
+    phase's numbers, the launch counts of its main-path runs)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenDataset, synthetic_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.optim import OptimizerConfig, global_norm, make_optimizer
+    from repro_torch.runtime import FaultToleranceConfig, TrainController
+    from repro_torch.train import (grads_with_accum, make_loss_fn,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    seq = SHAPES["train_4k"].seq_len
+    launches = {k: 0 for k in ops.launch_counts()}
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", d_ff=cfg.d_ff,
+               vocab=cfg.vocab, seq=seq, global_batch=TRAIN_BATCH,
+               grad_accum=TRAIN_ACCUM, dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype, remat=cfg.remat)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            for key, n in ops.launch_counts().items():
+                launches[key] += n
+            counted.last = ops.launch_counts()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        synthetic_corpus(corpus, n_tokens=(TRAIN_STEPS * TRAIN_BATCH + 1)
+                         * (seq + 1), vocab=cfg.vocab, seed=SEED)
+        ds = TokenDataset(corpus, seq, TRAIN_BATCH)
+
+        def make_batch(step):
+            return {key: torch.as_tensor(val).to(dev)
+                    for key, val in ds.batch(step).items()}
+
+        opt = make_optimizer(OptimizerConfig(
+            name=cfg.optimizer, lr=cfg.learning_rate, warmup_steps=0,
+            total_steps=TRAIN_STEPS, weight_decay=cfg.weight_decay,
+            grad_clip=cfg.grad_clip))
+        train_step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
+
+        def step_fn(state, batch, step):
+            p, o, metrics = train_step(state["params"], state["opt"], batch,
+                                       step)
+            return {"params": p, "opt": o}, metrics
+
+        def fresh():
+            params = lm.init_model(cfg, seed=SEED, device=dev)
+            return {"params": params, "opt": opt.init(params)}
+
+        # The plain path's first step (no update): loss and gradient norm.
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        out["params"] = sum(t.numel() for t in tree_leaves(params))
+        batch0 = make_batch(0)
+        loss_p, _, grads = grads_with_accum(make_loss_fn(cfg, "ref"), params,
+                                            batch0, TRAIN_ACCUM)
+        out.update(plain_step0_loss=float(loss_p),
+                   plain_step0_grad_norm=float(global_norm(grads)))
+        del grads
+
+        # Determinism, which the bitwise resume below rests on: the kernel
+        # path's gradients of one batch, twice, equal leaf by leaf.  The
+        # digest lets two runs of this script be compared as well.
+        loss_fn = make_loss_fn(cfg)
+        grads_a = tree_paths(grads_with_accum(loss_fn, params, batch0,
+                                              TRAIN_ACCUM)[2])
+        grads_b = tree_paths(grads_with_accum(loss_fn, params, batch0,
+                                              TRAIN_ACCUM)[2])
+        differ = [path for (path, a), (_, b) in zip(grads_a, grads_b)
+                  if not torch.equal(a, b)]
+        out.update(step0_grads_differ=differ,
+                   step0_grad_digest=tree_digest(grads_a))
+        require(not differ, f"training: the gradients of one batch differ "
+                f"between two runs in {differ}")
+        del grads_a, grads_b
+
+        # Forward-only loss, kernel 8 against the plain path, one microbatch.
+        micro = {key: val[:TRAIN_BATCH // TRAIN_ACCUM]
+                 for key, val in batch0.items()}
+        with torch.no_grad():
+            fwd_k = float(counted(lambda: lm.train_loss(params, micro,
+                                                         cfg)[0]))
+            fwd_counts = counted.last
+            fwd_p = float(lm.train_loss(params, micro, cfg, impl="ref")[0])
+        out.update(no_grad_loss_kernel=fwd_k, no_grad_loss_plain=fwd_p,
+                   no_grad_launches=fwd_counts)
+        require(abs(fwd_k - fwd_p) <= LOSS_RTOL * abs(fwd_p),
+                f"training: forward-only loss {fwd_k} (kernels) vs {fwd_p} "
+                f"(plain) over {LOSS_RTOL} relative")
+        require(fwd_counts["flash_attention"] == cfg.n_layers,
+                f"training: the forward-only loss launched {fwd_counts}")
+        del params, micro
+        torch.cuda.empty_cache()
+
+        # The straight run: 6 steps, checkpoints at 3 and 6.
+        ft = FaultToleranceConfig(ckpt_dir=os.path.join(tmp, "ckpt"),
+                                  ckpt_every=TRAIN_CKPT_EVERY, keep=2)
+        c1 = TrainController(step_fn, make_batch, ft)
+        state = fresh()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = counted(lambda: c1.run(state, TRAIN_STEPS, log_every=1,
+                                       log_fn=log))
+        out["straight_run_s"] = time.perf_counter() - t0
+        counts = counted.last
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        losses = [hist["loss"] for hist in c1.history]
+        norms = [hist["grad_norm"] for hist in c1.history]
+        out.update(losses=losses, grad_norms=norms,
+                   step_s=c1.watchdog.history,
+                   launches_per_step={key: counts[key] / TRAIN_STEPS
+                                      for key in FLASH_KERNELS})
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                f"training: a loss is not finite: {losses} {norms}")
+        require(counts["flash_attention_fwd"] > 0
+                and counts["flash_attention_bwd"] > 0,
+                f"training: a flash kernel never launched: {counts}")
+        for key, want in (("loss", out["plain_step0_loss"]),
+                          ("grad_norm", out["plain_step0_grad_norm"])):
+            got = c1.history[0][key]
+            rtol = LOSS_RTOL if key == "loss" else GRAD_NORM_RTOL
+            require(abs(got - want) <= rtol * abs(want),
+                    f"training: step 0 {key} {got} (kernels) vs {want} "
+                    f"(plain) over {rtol} relative")
+        step_s = statistics.median(c1.watchdog.history[1:])
+        out.update(step_median_s=step_s,
+                   tokens_per_s=TRAIN_BATCH * seq / step_s)
+
+        # One more step, timed and profiled: the device's idle share.
+        extra = make_batch(TRAIN_STEPS)
+        one = lambda: step_fn(state, extra, TRAIN_STEPS)  # noqa: E731
+        wall_ms = statistics.median(sync_ms(one) for _ in range(2))
+        out.update(step_wall_ms=wall_ms, device_busy_ms="not measured")
+        prof = profile_step(one)
+        if prof is not None:
+            out.update(device_busy_ms=prof["busy_ms"],
+                       device_idle_share=1.0 - prof["busy_ms"] / wall_ms,
+                       kernels_per_step=prof["kernels"], top=prof["top"])
+        del state, one, extra
+        torch.cuda.empty_cache()
+
+        # A run killed at step 4 leaves the step-3 checkpoint as its
+        # newest, as the straight run did before it went on: with step 6's
+        # dropped, a fresh controller resumes from step 3, runs steps 3
+        # and 4, and is killed at step 5.  Its losses must be the straight
+        # run's, bit for bit.
+        shutil.rmtree(os.path.join(ft.ckpt_dir, f"step_{TRAIN_STEPS:08d}"))
+        c2 = TrainController(step_fn, make_batch, ft)
+        require(c2.ckpt.latest_step() == TRAIN_CKPT_EVERY,
+                f"training: resume finds step {c2.ckpt.latest_step()}")
+        t0 = time.perf_counter()
+        try:
+            counted(lambda: c2.run(fresh(), TRAIN_STEPS,
+                                   preempt_at=TRAIN_PREEMPT + 1,
+                                   log_every=100))
+            require(False, "training: the preemption never came")
+        except KeyboardInterrupt:
+            pass
+        out["resumed_run_s"] = time.perf_counter() - t0
+        resumed = [hist["loss"] for hist in c2.history]
+        out["resumed_losses"] = resumed
+        want = losses[TRAIN_CKPT_EVERY:TRAIN_PREEMPT + 1]
+        out["resumed_equal_bitwise"] = resumed == want
+        require(resumed == want,
+                f"training: resumed losses {resumed} are not the straight "
+                f"run's {want} bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1006,9 +1427,10 @@ def main() -> int:
     log(smi)
     dev = resolve_device("cuda")
     name = torch.cuda.get_device_name(0)
-    bw, flops = peaks_for(name)
+    bw, flops, bf16_flops = peaks_for(name)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}; "
-        f"peaks {bw / 1e12} TB/s, {flops / 1e12} fp32 TFLOP/s")
+        f"peaks {bw / 1e12} TB/s, {flops / 1e12} fp32 TFLOP/s, "
+        f"{bf16_flops / 1e12} bf16 tensor-core TFLOP/s")
     t0 = time.perf_counter()
     libs = build.build_all()
     log(f"built {len(libs)} kernel libraries in "
@@ -1167,6 +1589,24 @@ def main() -> int:
         del out, want, sched, fam
         torch.cuda.empty_cache()
         phase_s[f"{label} serving"] = time.perf_counter() - t0
+
+    # -- phase 7: training, yi-6b width ----------------------------------------
+    t0 = time.perf_counter()
+    records.update(check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops))
+    for key in [k for k in records if k[0] in FLASH_KERNELS]:
+        log(f"kernel {key[0]} [{key[1]}]: " + json.dumps(records[key]))
+    phase_s["flash kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary, counts = run_training(dev)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"training yi-6b width ({smi}): " + json.dumps(summary))
+    log(f"training: step {summary['step_median_s']:.3f} s median, "
+        f"{summary['tokens_per_s']:.1f} tokens/s, device idle share "
+        f"{summary.get('device_idle_share', 'not measured')}, flash "
+        f"launches per step {summary['launches_per_step']}; resumed losses "
+        f"equal bit for bit: {summary['resumed_equal_bitwise']}")
+    phase_s["training"] = time.perf_counter() - t0
     phase_s["total"] = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(phase_s))
 
@@ -1181,6 +1621,9 @@ def main() -> int:
             launches=launches[kname], max_abs_err=err, ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            bound_rate=rec["bound_rate"],
+            **({"bound_fp32_ms": rec["bound_fp32_ms"]}
+               if "bound_fp32_ms" in rec else {}),
             max_err=err, kernel_ms=rec["ms"],  # the same, under other names
         ))
     print(json.dumps({"kernels": kernels}))

@@ -1,17 +1,18 @@
 """Architecture registry of the port: the configurations its slices serve.
 
-A copy of the parts of ``repro.configs`` the serving slices need: the
-``yi-6b`` entry (paged and speculative serving, and the Mamba block at its
-width), the ``rwkv6-3b`` entry (recurrent serving) and
-:func:`smoke_config`, which reduces either to a CPU-test size exactly as
-the reference does.
+A copy of the parts of ``repro.configs`` the port's slices need: the
+``yi-6b`` entry (paged and speculative serving, dense training, and the
+Mamba block at its width), the ``rwkv6-3b`` entry (recurrent serving),
+the shape cells ``SHAPES`` (training takes ``train_4k``'s sequence
+length) and :func:`smoke_config`, which reduces either model to a
+CPU-test size exactly as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List
 
-from .base import ArchConfig
+from .base import SHAPES, ArchConfig, ShapeConfig
 from .rwkv6_3b import CONFIG as _rwkv6_3b
 from .yi_6b import CONFIG as _yi_6b
 

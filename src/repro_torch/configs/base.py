@@ -1,8 +1,10 @@
-"""Architecture configuration (a copy of ``repro.configs.base.ArchConfig``).
+"""Architecture and shape configuration (copies of ``repro.configs.base``'s
+``ArchConfig``, ``ShapeConfig`` and ``SHAPES``).
 
 The port keeps its own copy so that it imports nothing of ``repro``.  The
 fields are the reference's, so a configuration means the same model in
-both packages; ``compute_dtype`` maps to torch dtypes.
+both packages; ``compute_dtype`` and ``param_torch_dtype`` map to torch
+dtypes.
 """
 from __future__ import annotations
 
@@ -86,6 +88,11 @@ class ArchConfig:
             return self.vocab
         return -(-self.vocab // 128) * 128
 
+    def layer_is_global(self, i: int) -> bool:
+        if self.global_interval is None:
+            return True
+        return (i % self.global_interval) == (self.global_interval - 1)
+
     def heads_for_tp(self, tp: int) -> Tuple[int, int]:
         """(q_heads, kv_heads) actually instantiated under tp-way sharding."""
         if tp <= 1:
@@ -100,3 +107,26 @@ class ArchConfig:
     @property
     def compute_dtype(self):
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
+
+    @property
+    def param_torch_dtype(self):
+        return {"bfloat16": torch.bfloat16,
+                "float32": torch.float32}[self.param_dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

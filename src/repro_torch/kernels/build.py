@@ -35,7 +35,7 @@ __all__ = ["KernelBuildError", "SOURCES", "build_all", "build_dir", "library"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 SOURCES = ("stream_converters", "paged_decode", "paged_prefill", "spmv",
-           "transpose")
+           "transpose", "flash_attention")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

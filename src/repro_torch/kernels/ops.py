@@ -20,13 +20,21 @@ read alike.  ``paged_verify`` launches the prefill kernel with
 ``starts = lengths``; ``speculative_accept`` is plain integer tensor code
 on any device, as in the reference, which has no kernel for it.
 
+Training attention runs through ``flash_attention``, one
+``torch.autograd.Function`` on every device: with no gradient to take it
+launches the forward kernel (``flash_attention`` counts it); under autograd
+its forward launches the forward-with-lse kernel (``flash_attention_fwd``)
+and its backward the two backward passes (``flash_attention_bwd``, one
+count per backward call).  On a CPU tensor the same Function runs the
+plain versions.
+
 The paper's workloads run through ``tiled_transpose`` (ismt) and
 ``spmv_ell`` (spmv, pagerank); ``spmv_ell_panel_kernel`` is the panel-
 streamed SpMV, which the reference calls directly since its ``ops`` has no
 wrapper for it.  Unlike the reference's wrappers, these pad nothing: the
 kernels mask the ragged edge of a tile or row block.
 
-Each of the ten kernel wrappers counts its launches in an integer
+Each of the thirteen kernel wrappers counts its launches in an integer
 attribute, ``launches``, raised by one only where the kernel is launched
 (:func:`launch_counts`, :func:`reset_launch_counts`).  ``paged_verify``
 counts under its own name, not the prefill kernel's.
@@ -45,6 +53,9 @@ from .build import library
 
 __all__ = [
     "KERNELS",
+    "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_fwd",
     "indirect_gather",
     "indirect_scatter",
     "launch_counts",
@@ -87,6 +98,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 _CONVERTER_ARGS = [_P] * 3 + [_L] * 3 + [_P]
+# n pointers (the last one the strides array), then B, H, KVH, Sq, Skv, D,
+# causal, has_window, window, scale, bf16, stream.
+_FLASH_TAIL = lambda n: [_P] * n + [_I] * 9 + [_F, _I, _P]
 _STRIDED_ARGS = [_P] * 2 + [_L] * 5 + [_P]
 _SIGNATURES = {  # C entry: (library, argument types)
     "repro_indirect_gather": ("stream_converters", _CONVERTER_ARGS),
@@ -99,6 +113,10 @@ _SIGNATURES = {  # C entry: (library, argument types)
     "repro_tiled_transpose": ("transpose", [_P] * 2 + [_L] * 2 + [_I, _P]),
     "repro_spmv_ell": ("spmv", [_P] * 4 + [_L] + [_I] * 2 + [_P]),
     "repro_spmv_ell_panel": ("spmv", [_P] * 5 + [_L] + [_I] * 5 + [_P]),
+    "repro_flash_attention": ("flash_attention", _FLASH_TAIL(5)),
+    "repro_flash_attention_lse": ("flash_attention", _FLASH_TAIL(6)),
+    "repro_flash_attention_bwd_dkv": ("flash_attention", _FLASH_TAIL(9)),
+    "repro_flash_attention_bwd_dq": ("flash_attention", _FLASH_TAIL(8)),
 }
 
 
@@ -729,13 +747,185 @@ def spmv_ell_panel_kernel(vals: torch.Tensor, cols: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Flash attention (training path)
+# ---------------------------------------------------------------------------
+
+_FLASH_DTYPES = (torch.float32, torch.bfloat16)
+_FLASH_HEAD_DIMS = (64, 128)
+
+
+def _flash_shapes(q, k, v, name):
+    """Check what the flash kernels take and return (B, H, KVH, Sq, Skv, D)."""
+    _check(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
+           f"{name}: q must be (B, H, Sq, D) and k, v (B, KVH, Skv, D), got "
+           f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    _, kvh, skv, dk = k.shape
+    _check(k.shape[0] == b and dk == d and kvh > 0 and h % kvh == 0,
+           f"{name}: q heads {h} x {d} do not group over kv heads "
+           f"{kvh} x {dk}")
+    _check(d in _FLASH_HEAD_DIMS, f"{name}: the kernel takes head dims "
+           f"{_FLASH_HEAD_DIMS}, got {d}")
+    _check(q.dtype in _FLASH_DTYPES and k.dtype == q.dtype
+           and v.dtype == q.dtype,
+           f"{name}: q, k, v must share one of {_FLASH_DTYPES}, got "
+           f"{q.dtype}, {k.dtype}, {v.dtype}")
+    _check(k.device == q.device and v.device == q.device,
+           f"{name}: q, k, v on {q.device}, {k.device}, {v.device}")
+    return b, h, kvh, sq, skv, d
+
+
+def _rows_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its last axis is contiguous (any other strides go to the
+    kernel as they are), else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _strides(*tensors):
+    """The (b, h, s) element strides of each tensor, as a C array."""
+    vals = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _flash_tail(shapes, causal, window, scale, x):
+    """B, H, KVH, Sq, Skv, D, causal, has_window, window, scale, bf16,
+    stream: the launch arguments after the pointers.  A window of Sq or
+    more masks nothing a query can reach (qi - kj < Sq always), so it goes
+    to the kernel as Sq, which keeps its index sums inside int32."""
+    b, h, kvh, sq, skv, d = shapes
+    win = 0 if window is None else min(int(window), sq)
+    return (b, h, kvh, sq, skv, d, int(bool(causal)), int(window is not None),
+            win, ref._scale(d, scale), int(x.dtype == torch.bfloat16),
+            _stream(x))
+
+
+def _launch_flash_fwd(q, k, v, causal, window, scale, with_lse: bool):
+    shapes = _flash_shapes(q, k, v, "flash_attention")
+    q, k, v = (_rows_contiguous(t) for t in (q, k, v))
+    b, h, _, sq, _, _ = shapes
+    o = torch.empty_like(q)  # q's layout: (B, S, H, D) views stay so
+    tail = _flash_tail(shapes, causal, window, scale, q)
+    if not with_lse:
+        _launch("repro_flash_attention", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+                _strides(q, k, v, o), *tail)
+        return o, None
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("repro_flash_attention_lse", _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+            _ptr(lse), _strides(q, k, v, o), *tail)
+    return o, lse
+
+
+@_counted
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, impl: str = "cuda"):
+    """``(o, lse)``: the forward whose residuals the backward needs
+    (``flash_attention_fwd_kernel``); lse ``(B, H, Sq)`` float32."""
+    if not _use_kernel(impl, q):
+        return ref.flash_attention_fwd(q, k, v, causal, window, scale)
+    out = _launch_flash_fwd(q, k, v, causal, window, scale, with_lse=True)
+    flash_attention_fwd.launches += 1
+    return out
+
+
+@_counted
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None, impl: str = "cuda"):
+    """``(dq, dk, dv)`` from the forward's residuals and ``do``
+    (``flash_attention_bwd_kernel``): ``delta = rowsum(do·o)`` as a tensor
+    op, then the dk/dv pass and the dq pass, counted as one launch.  Each
+    gradient has its input's dtype and layout."""
+    if not _use_kernel(impl, q):
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                       scale)
+    shapes = _flash_shapes(q, k, v, "flash_attention_bwd")
+    _check(do.shape == q.shape and do.dtype == q.dtype
+           and o.shape == q.shape,
+           f"flash_attention_bwd: do {tuple(do.shape)} {do.dtype} and o "
+           f"{tuple(o.shape)} must match q {tuple(q.shape)} {q.dtype}")
+    _check(lse.shape == q.shape[:3] and lse.dtype == torch.float32,
+           f"flash_attention_bwd: lse must be (B, H, Sq) float32, got "
+           f"{tuple(lse.shape)} {lse.dtype}")
+    q, k, v, do = (_rows_contiguous(t) for t in (q, k, v, do))
+    lse = lse.contiguous()
+    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tail = _flash_tail(shapes, causal, window, scale, q)
+    _launch("repro_flash_attention_bwd_dkv", _ptr(q), _ptr(k), _ptr(v),
+            _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+            _strides(q, k, v, do, dk, dv), *tail)
+    _launch("repro_flash_attention_bwd_dq", _ptr(q), _ptr(k), _ptr(v),
+            _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+            _strides(q, k, v, do, dq), *tail)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_vjp``: forward saves ``(q, k, v, o, lse)``,
+    backward recomputes p from lse (``flash_attention_fwd`` /
+    ``flash_attention_bwd``, kernels or plain versions by device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, impl):
+        o, lse = flash_attention_fwd(q, k, v, causal, window, scale,
+                                     impl=impl)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale, impl)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale, impl = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                         scale, impl=impl)
+        return dq, dk, dv, None, None, None, None
+
+
+@_counted
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, block_q: int = 128,
+                    block_k: int = 128, impl: str = "cuda") -> torch.Tensor:
+    """Flash attention, trainable: q (B, H, Sq, D); k, v (B, KVH, Skv, D)
+    → o (B, H, Sq, D) in q's dtype and layout.
+
+    With grad mode off, or no input requiring grad, this is the forward
+    kernel alone (``flash_attention_kernel``); otherwise the autograd
+    Function above.  Any strides with a contiguous last axis go to the
+    kernels as they are.  Nothing is padded: the kernels mask with the true
+    Skv, so a ragged non-causal Skv is exact (the reference's wrapper pads
+    K/V to the block and lets the padded keys into the softmax).
+    ``block_q``/``block_k`` are the reference's tiles, kept for its
+    signature; the kernels pick their own 64-row tiles, so the two only
+    have to be positive.  Head dims 64 and 128, fp32 or bf16.
+    """
+    _check(block_q > 0 and block_k > 0,
+           f"flash_attention: blocks {block_q} x {block_k} must be positive")
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, scale, impl)
+    if not _use_kernel(impl, q):
+        return ref.flash_attention_fwd(q, k, v, causal, window, scale)[0]
+    o, _ = _launch_flash_fwd(q, k, v, causal, window, scale, with_lse=False)
+    flash_attention.launches += 1
+    return o
+
+
+# ---------------------------------------------------------------------------
 # Launch counts
 # ---------------------------------------------------------------------------
 
-#: The ten kernel wrappers, each with its ``launches`` count.
+#: The thirteen kernel wrappers, each with its ``launches`` count.
 KERNELS = (indirect_gather, indirect_scatter, paged_decode_attention,
            paged_prefill_attention, paged_verify, strided_gather,
-           strided_scatter, tiled_transpose, spmv_ell, spmv_ell_panel_kernel)
+           strided_scatter, tiled_transpose, spmv_ell, spmv_ell_panel_kernel,
+           flash_attention, flash_attention_fwd, flash_attention_bwd)
 
 
 def launch_counts() -> Dict[str, int]:

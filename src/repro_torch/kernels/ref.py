@@ -38,6 +38,9 @@ __all__ = [
     "int8_quantize",
     "quantize_kv",
     "dequantize_pages",
+    "mha",
+    "flash_attention_fwd",
+    "flash_attention_bwd",
 ]
 
 
@@ -196,6 +199,125 @@ def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
 
 def _scale(d: int, scale: Optional[float]) -> float:
     return scale if scale is not None else 1.0 / math.sqrt(d)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (training path)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the kernels' finite mask sentinel
+
+
+def _attn_mask(q_len: int, kv_len: int, causal: bool, window: Optional[int],
+               device: torch.device, q_offset: int = 0) -> torch.Tensor:
+    """(q_len, kv_len) boolean mask; True = attend."""
+    qi = q_offset + torch.arange(q_len, device=device)[:, None]
+    kj = torch.arange(kv_len, device=device)[None, :]
+    m = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        m &= qi >= kj
+    if window is not None:
+        m &= qi - kj < window
+    return m
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
+        scale: Optional[float] = None) -> torch.Tensor:
+    """Reference attention (``repro.kernels.ref.mha``), the oracle of the
+    flash kernels.  q (B, H, S, D); k, v (B, KVH, Skv, D); GQA by repeat.
+
+    Scores in q's dtype, softmax in float32 with -inf masking; a fully
+    masked row gives zeros.
+    """
+    b, h, sq, d = q.shape
+    kvh = k.shape[1]
+    if kvh != h:
+        rep = h // kvh
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * _scale(d, scale)
+    mask = _attn_mask(sq, k.shape[2], causal, window, q.device, q_offset)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.nan_to_num(torch.softmax(logits, dim=-1), nan=0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def _group_scores(q: torch.Tensor, k: torch.Tensor, g: int, rep: int,
+                  sc: float) -> torch.Tensor:
+    """float32 scores of KV head ``g``'s query heads: (B, rep, Sq, Skv)."""
+    qg = q[:, g * rep:(g + 1) * rep].float()
+    return qg @ k[:, g:g + 1].float().transpose(-1, -2) * sc
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the flash forward kernels compute: ``(o, lse)``.
+
+    q (B, H, Sq, D); k, v (B, KVH, Skv, D), GQA head ``h`` reading KV head
+    ``h // (H / KVH)``; query i sits at position i.  float32 arithmetic
+    whatever the input dtype; the mask is ``causal`` and/or ``window`` over
+    the true Skv (nothing is padded).  ``o`` in q's dtype, ``lse = m +
+    log l`` (B, H, Sq) float32.  A fully masked row gives ``o = 0`` and
+    ``lse = -1e30``: the kernels' ``l == 0 → 1`` rule.  Scores are formed
+    one KV group at a time, so at most (B, H/KVH, Sq, Skv) float32 live.
+    """
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    rep = h // kvh
+    sc = _scale(d, scale)
+    mask = _attn_mask(sq, skv, causal, window, q.device)
+    o = torch.empty((b, kvh, rep, sq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, kvh, rep, sq), dtype=torch.float32, device=q.device)
+    for g in range(kvh):
+        s = _group_scores(q, k, g, rep, sc).masked_fill(~mask, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m).masked_fill(~mask, 0.0)
+        del s
+        l = p.sum(dim=-1, keepdim=True)
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        o[:, g] = (p @ v[:, g:g + 1].float()) / l
+        lse[:, g] = (m + torch.log(l))[..., 0]
+    return o.reshape(b, h, sq, d).to(q.dtype), lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the two backward kernels compute: ``(dq, dk, dv)``.
+
+    The formulas of the reference's ``_dkv_body`` / ``_dq_body`` on whole
+    score matrices: ``p = exp(s - lse)`` under the mask, ``dv = pᵀ·do``,
+    ``dp = do·vᵀ``, ``ds = p·(dp - delta)·scale`` with ``delta =
+    rowsum(do·o)``, ``dq = ds·k``, ``dk = dsᵀ·q``; dk and dv summed over
+    each GQA group.  float32 arithmetic; results in the inputs' dtypes.
+    """
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    rep = h // kvh
+    sc = _scale(d, scale)
+    mask = _attn_mask(sq, skv, causal, window, q.device)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, kvh, skv, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for g in range(kvh):
+        heads = slice(g * rep, (g + 1) * rep)
+        s = _group_scores(q, k, g, rep, sc)
+        p = torch.where(mask, torch.exp(s - lse[:, heads, :, None]), 0.0)
+        del s
+        dog = do[:, heads].float()
+        dv[:, g] = (p.transpose(-1, -2) @ dog).sum(dim=1)
+        dp = dog @ v[:, g:g + 1].float().transpose(-1, -2)
+        ds = p * (dp - delta[:, heads, :, None]) * sc
+        del p, dp
+        dq[:, heads] = ds @ k[:, g:g + 1].float()
+        dk[:, g] = (ds.transpose(-1, -2) @ q[:, heads].float()).sum(dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def paged_decode_attention(

@@ -1,10 +1,12 @@
 """Shared model pieces of the port (from ``repro.models.common``).
 
-Only what the recurrent blocks use: parameter declarations and their
-initialization, :func:`rms_norm` and :func:`decayed_cumsum`.  The
-reference's logical dimension names exist for sharding, which the port
-leaves out, so a :class:`Param` here is a shape, an initializer and a
-scale.  Parameter trees are nested ``dict``s of tensors.
+Parameter declarations and their initialization, :func:`rms_norm`,
+``ACTIVATIONS``, RoPE (:func:`rope_freqs`, :func:`apply_rope`), the
+decayed recurrence of the recurrent blocks (:func:`decayed_cumsum`) and
+the training loss's :func:`chunked_softmax_xent`.  The reference's logical
+dimension names exist for sharding, which the port leaves out, so a
+:class:`Param` here is a shape, an initializer and a scale.  Parameter
+trees are nested ``dict``s of tensors.
 """
 from __future__ import annotations
 
@@ -13,15 +15,24 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
+    "ACTIVATIONS",
     "Param",
+    "apply_rope",
     "cast_tree",
+    "chunked_softmax_xent",
     "decayed_cumsum",
     "init_params",
     "map_tree",
     "rms_norm",
+    "rope_freqs",
     "stack_layer_defs",
+    "tree_leaves",
+    "tree_paths",
+    "tree_unflatten",
 ]
 
 Tree = Any
@@ -53,6 +64,35 @@ def map_tree(fn: Callable[[Any], Any], tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_paths(tree: Tree, prefix: str = ""):
+    """``[(path, leaf)]`` of a nested dict in sorted key order, the order
+    in which ``jax.tree_util`` flattens a dict; paths in its ``keystr``
+    form (``['layers']['attn']['wq']``), so leaf i is the same leaf in
+    both packages."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_paths(tree[k], f"{prefix}['{k}']")]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a nested dict in sorted key order."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_unflatten(like: Tree, leaves) -> Tree:
+    """A tree shaped like ``like`` holding ``leaves`` (in sorted key
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(like)
 
 
 def stack_layer_defs(defs: Tree, n_layers: int) -> Tree:
@@ -96,6 +136,83 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
            / x.shape[-1])
     scale = torch.rsqrt(var + eps).to(x.dtype)
     return x * scale * (1.0 + gamma.to(x.dtype))
+
+
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """float32 inverse frequencies ``theta ** -(2i / head_dim)``."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., S, H, hd); positions (..., S) or (S,).  float32 angles, the
+    two halves rotated (the reference's split-halves layout), cast back to
+    x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs            # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _xent_chunk(xc, w_out, lc, mc, n_valid: Optional[int]):
+    """Summed masked NLL and summed mask of one (B, chunk) slice."""
+    logits = (xc @ w_out).float()
+    if n_valid is not None and n_valid < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= n_valid
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    mc = mc.float()
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
+                         labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         seq_chunk: int = 512,
+                         n_valid: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE of ``softmax(x @ w_out)`` against labels over seq chunks.
+
+    x (B, S, D); w_out (D, V); labels (B, S).  Logits are float32 and only
+    one (B, chunk, V) block of them lives at a time: under autograd each
+    chunk runs inside :func:`torch.utils.checkpoint.checkpoint`, so its
+    logits are recomputed in the backward instead of kept.  ``n_valid``:
+    the real vocab when V is padded (padded classes masked).  Returns
+    ``(loss, total weight)``.
+    """
+    b, s, _ = x.shape
+    seq_chunk = min(seq_chunk, s)
+    if s % seq_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk "
+                         f"{seq_chunk}")
+    if mask is None:
+        mask = torch.ones((b, s), dtype=x.dtype, device=x.device)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, seq_chunk):
+        part = (x[:, i:i + seq_chunk], w_out, labels[:, i:i + seq_chunk],
+                mask[:, i:i + seq_chunk], n_valid)
+        if torch.is_grad_enabled():
+            nll, m = checkpoint(_xent_chunk, *part, use_reentrant=False)
+        else:
+            nll, m = _xent_chunk(*part)
+        tot = tot + nll
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0), cnt
 
 
 def decayed_cumsum(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor

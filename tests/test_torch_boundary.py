@@ -19,6 +19,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models.lm import (init_model,  # noqa: E402
+                                   lm_params_from_numpy)
 from repro_torch.serve import (  # noqa: E402
     PagedKVCache, PagedLM, RecurrentLM, params_from_numpy,
     recurrent_params_from_numpy)
@@ -55,7 +57,11 @@ def test_port_files_are_scanned():
             "models/mamba.py", "configs/rwkv6_3b.py", "core/packing.py",
             "core/streams.py", "core/busmodel.py", "core/banksim.py",
             "workloads/impls.py", "workloads/paper.py",
-            "workloads/__main__.py", "chip_smoke.py"} <= names
+            "workloads/__main__.py", "models/attention.py", "models/mlp.py",
+            "models/lm.py", "optim/optimizers.py", "train/train_step.py",
+            "data/pipeline.py", "checkpoint/manager.py",
+            "runtime/fault_tolerance.py", "launch/train.py",
+            "chip_smoke.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -64,7 +70,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serve.drafter, repro_torch.serve.recurrent_lm, "
             "repro_torch.kernels.ops, repro_torch.kernels.build, "
             "repro_torch.workloads.impls, repro_torch.workloads.paper, "
-            "repro_torch.workloads.__main__; "
+            "repro_torch.workloads.__main__, repro_torch.models.lm, "
+            "repro_torch.optim, repro_torch.train, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -88,6 +97,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         RecurrentLM(smoke_config("rwkv6-3b"))
     with pytest.raises(RuntimeError, match="GPU"):
         recurrent_params_from_numpy(np.zeros((2, 2)), {})
+    with pytest.raises(RuntimeError, match="GPU"):
+        init_model(cfg)
+    with pytest.raises(RuntimeError, match="GPU"):
+        lm_params_from_numpy({}, cfg)
     # Asked for by name, the CPU works.
     PagedKVCache.create(cfg, batch=2, max_len=16, page=4, device="cpu")
 
@@ -106,10 +119,27 @@ def test_workloads_entry_point_raises_without_a_card():
     assert res.stdout == ""
 
 
+def test_train_launcher_raises_without_a_card(tmp_path):
+    """``python -m repro_torch.launch.train`` trains on the GPU unless asked
+    for the CPU: with no card it fails, naming the GPU, before any output
+    and before it writes a corpus or a checkpoint."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "yi-6b",
+         "--smoke", "--data-dir", str(tmp_path / "data"), "--ckpt-dir",
+         str(tmp_path / "ckpt")],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "GPU" in res.stderr and "device='cpu'" in res.stderr
+    assert res.stdout == "" and not list(tmp_path.iterdir())
+
+
 def test_build_sources_name_every_kernel_file():
     assert set(build.SOURCES) == {
         "stream_converters", "paged_decode", "paged_prefill", "spmv",
-        "transpose"}
+        "transpose", "flash_attention"}
     assert {p.stem for p in build.CSRC.glob("*.cu")} == set(build.SOURCES)
 
 
