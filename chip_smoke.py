@@ -61,14 +61,19 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    and a live slot read back through ``recurrent_state_read`` (the strided
    gather) must equal the pool's own view of it.
 7. Training: first the flash-attention kernels (forward, forward with
-   lse, two-pass backward) against their plain versions: in fp32 at
-   S=1024 within rtol = atol = 2e-5 (forward) and 1e-4 (backward), and
-   on a ragged non-causal S=1000 and a causal window of 256 in fp32, also
-   against ``ref.mha``; at the training path's shapes in bf16 (B=2, 32/4
-   heads, S=4096, D=128, causal, as (B, S, H, D) views) within the same
-   plus 2 bf16 steps of each plain value (each side rounds once); kernel,
-   plain version and ``scaled_dot_product_attention`` (forward, backward)
-   timed with CUDA events.  Then yi-6b at full width cut to 4 layers
+   lse, two-pass backward) against their plain versions, on both routes:
+   the SIMT kernels (fp32) at S=1024 within rtol = atol = 2e-5 (forward)
+   and 1e-4 (backward), and on a ragged non-causal S=1000 and a causal
+   window of 256, also against ``ref.mha``; the tensor-core kernels
+   (bf16, ``wgmma`` with TMA loads) at the training path's shapes (B=2,
+   32/4 heads, S=4096, D=128, causal, as (B, S, H, D) views), on a ragged
+   non-causal S=1000 and a causal window of 256 (also against ``ref.mha``
+   in fp32), on Sq=512 over Skv=256 with fully masked rows (o = 0 and
+   lse = -1e30 checked) and at D=64, within the same tolerances plus 2
+   bf16 steps of each plain value (each side rounds once); each case
+   prints its route; kernel, plain version and
+   ``scaled_dot_product_attention`` (forward, backward) timed with CUDA
+   events at the path's shapes.  Then yi-6b at full width cut to 4 layers
    (random weights from a seeded generator, fp32 params, bf16 compute,
    remat), sequences of 4096 from the synthetic corpus, global batch 4
    in 2 microbatches: the plain path's first step and a forward-only loss
@@ -1051,15 +1056,17 @@ def tree_digest(leaves) -> str:
     return hashlib.sha256(json.dumps(sums).encode()).hexdigest()[:16]
 
 
+def visible_keys(i, skv, causal, window):
+    """How many keys query row i sees through the attention mask."""
+    hi = min(skv, i + 1) if causal else skv
+    lo = max(0, i - window + 1) if window is not None else 0
+    return max(0, hi - lo)
+
+
 def visible_pairs(sq, skv, causal, window):
     """The (query, key) pairs the attention mask lets through: the work
     this input needs, which the bound counts."""
-    n = 0
-    for i in range(sq):
-        hi = min(skv, i + 1) if causal else skv
-        lo = max(0, i - window + 1) if window is not None else 0
-        n += max(0, hi - lo)
-    return n
+    return sum(visible_keys(i, skv, causal, window) for i in range(sq))
 
 
 def flash_inputs(dev, gen, b, h, kvh, sq, d, dtype, skv=None):
@@ -1117,22 +1124,24 @@ def flash_case(ops, ref, inputs, causal, window, fwd_tol, bwd_tol, tag,
 
     close("o", o, po, fwd_tol)
     close("lse", lse, plse, fwd_tol)
-    if oracle:
-        close("o vs mha", o, ref.mha(q, k, v, **kw), fwd_tol)
+    if oracle:  # in float32 on the same inputs: bf16 ones are exact there
+        close("o vs mha", o, ref.mha(q.float(), k.float(), v.float(), **kw),
+              fwd_tol)
     for name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
         close(name, g, pg, bwd_tol)
     return errs, shares
 
 
 def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
-    """Kernels 8-10 against their plain versions: at the training path's
-    shapes in bf16 (timed, with SDPA as the library call), fp32 at
-    S = 1024, a ragged non-causal S = 1000 and a causal window of 256 in
-    fp32 (the last two also against ``ref.mha``).  The bound of the
-    path's bf16 work is taken at the bf16 tensor-core rate ``bf16_flops``,
-    the card's peak for that type, although the kernels do their
-    arithmetic in float32 on the FMA units; ``bound_fp32_ms`` is the same
-    work at the float32 rate ``flops``."""
+    """Kernels 8-10 against their plain versions on both routes: bf16
+    (tensor cores) at the training path's shapes (timed, with SDPA as the
+    library call), a ragged non-causal S = 1000, a causal window of 256
+    (both also against ``ref.mha``), Sq = 512 over Skv = 256 with fully
+    masked rows (o = 0, lse = -1e30 checked) and D = 64; fp32 (SIMT) at
+    S = 1024, a ragged non-causal S = 1000 and a causal window of 256 (the
+    last two also against ``ref.mha``).  The bound of the path's bf16
+    work is taken at the bf16 tensor-core rate ``bf16_flops``;
+    ``bound_fp32_ms`` is the same work at the float32 rate ``flops``."""
     import torch.nn.functional as F
 
     from repro_torch.configs import SHAPES, get_config
@@ -1142,22 +1151,42 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
     seq = SHAPES["train_4k"].seq_len
     gen = torch.Generator(device=dev).manual_seed(SEED)
     records = {}
-    cases = [
-        ("path bf16", dict(sq=seq, dtype=torch.bfloat16), True, None,
-         FP32_FWD_TOL, FP32_BWD_TOL, False),
-        ("fp32 1024", dict(sq=1024, dtype=torch.float32), True, None,
-         FP32_FWD_TOL, FP32_BWD_TOL, False),
-        ("fp32 ragged 1000 non-causal", dict(sq=1000, dtype=torch.float32),
-         False, None, FP32_FWD_TOL, FP32_BWD_TOL, True),
-        ("fp32 1024 window 256", dict(sq=1024, dtype=torch.float32), True,
-         256, FP32_FWD_TOL, FP32_BWD_TOL, True),
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [  # tag, shape, causal, window, oracle
+        ("path bf16", dict(sq=seq, dtype=bf16), True, None, False),
+        ("fp32 1024", dict(sq=1024, dtype=fp32), True, None, False),
+        ("fp32 ragged 1000 non-causal", dict(sq=1000, dtype=fp32), False,
+         None, True),
+        ("fp32 1024 window 256", dict(sq=1024, dtype=fp32), True, 256, True),
+        ("bf16 ragged 1000 non-causal", dict(sq=1000, dtype=bf16), False,
+         None, True),
+        ("bf16 1024 window 256", dict(sq=1024, dtype=bf16), True, 256, True),
+        # Sq != Skv, and rows 256 + 63 .. see no key: o = 0, lse = -1e30.
+        ("bf16 Sq 512 Skv 256 window 64", dict(sq=512, skv=256, dtype=bf16),
+         True, 64, False),
+        ("bf16 1024 D 64", dict(sq=1024, dtype=bf16, d=64), True, None,
+         False),
     ]
-    for tag, shape, causal, window, ftol, btol, oracle in cases:
-        inputs = flash_inputs(dev, gen, b, h, kvh, d=d, **shape)
-        errs, shares = flash_case(ops, ref, inputs, causal, window, ftol,
-                                  btol, tag, oracle)
-        log(f"flash {tag}: max abs errors " + json.dumps(errs)
-            + "; largest share of the tolerance " + json.dumps(shares))
+    for tag, shape, causal, window, oracle in cases:
+        inputs = flash_inputs(dev, gen, b, h, kvh, **{"d": d, **shape})
+        errs, shares = flash_case(ops, ref, inputs, causal, window,
+                                  FP32_FWD_TOL, FP32_BWD_TOL, tag, oracle)
+        route = "wgmma" if shape["dtype"] == bf16 else "simt"
+        log(f"flash {tag} (route {route}): max abs errors "
+            + json.dumps(errs) + "; largest share of the tolerance "
+            + json.dumps(shares))
+        sq, skv = inputs[0].shape[2], inputs[1].shape[2]
+        dead = torch.tensor([visible_keys(i, skv, causal, window) == 0
+                             for i in range(sq)], device=dev)
+        if dead.any():
+            o, lse = ops.flash_attention_fwd(*inputs[:3], causal=causal,
+                                             window=window)
+            require(bool((o[:, :, dead] == 0).all())
+                    and bool((lse[:, :, dead] == -1e30).all()),
+                    f"flash {tag}: fully masked rows must give o = 0 and "
+                    f"lse = -1e30")
+            log(f"flash {tag}: {int(dead.sum())} fully masked rows give "
+                f"o = 0, lse = -1e30")
         fwd_err = max(v for k_, v in errs.items() if k_.startswith("o"))
         bwd_err = max(errs[k_] for k_ in ("dq", "dk", "dv"))
         for kname, err in (("flash_attention", fwd_err),
@@ -1360,7 +1389,7 @@ def run_training(dev):
         one = lambda: step_fn(state, extra, TRAIN_STEPS)  # noqa: E731
         wall_ms = statistics.median(sync_ms(one) for _ in range(2))
         out.update(step_wall_ms=wall_ms, device_busy_ms="not measured")
-        prof = profile_step(one)
+        prof = profile_step(one, top=12)  # the flash kernels among them
         if prof is not None:
             out.update(device_busy_ms=prof["busy_ms"],
                        device_idle_share=1.0 - prof["busy_ms"] / wall_ms,

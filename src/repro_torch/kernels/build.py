@@ -7,8 +7,9 @@ into a shared library::
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so
          src/repro_torch/kernels/csrc/<name>.cu
 
-The library name carries a hash of its source, so an edited kernel is
-never served from a stale build.  All missing libraries are compiled at
+The library name carries a hash of its source and of the shared headers
+``csrc/*.cuh``, so an edited kernel or header is never served from a stale
+build.  All missing libraries are compiled at
 once, one ``nvcc`` per source started together, the first time any kernel
 is launched; nothing is built when the module is imported.  The output
 goes to ``build/repro_torch/`` at the root of the checkout, and ptxas's
@@ -67,6 +68,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

@@ -1,0 +1,304 @@
+// Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
+// TMA tile loads through 4-D tensor maps, wgmma descriptors and products.
+// Included by flash_attention.cu; build.py hashes this header into the
+// library name of every source, so an edited header forces a rebuild.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// Shared memory, barriers, register hand-off
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible to the async (TMA) proxy.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive once and expect `bytes` more of TMA traffic on this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Block until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// bar.sync on a named barrier shared by `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// TMA
+// ---------------------------------------------------------------------------
+
+// A tensor map over a (B, heads, S, D) bf16 tensor, with the coordinate
+// slot (1..3) that each of s, h, b takes in it: the host orders the outer
+// dimensions by stride.
+struct TmaView {
+  CUtensorMap map;
+  int slot_s, slot_h, slot_b;
+};
+
+__device__ __forceinline__ int coord(const TmaView& t, int slot, int s, int h,
+                                     int b) {
+  return t.slot_s == slot ? s : (t.slot_h == slot ? h : b);
+}
+
+// One box of `t` (64 columns from column d0, the box's rows from row s of
+// slice (b, h)) into `dst`, completing on `bar`.  Rows past S are zeros.
+__device__ __forceinline__ void tma_load(void* dst, const TmaView& t,
+                                         uint64_t* bar, int d0, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&t.map)), "r"(smem_u32(bar)), "r"(d0),
+      "r"(coord(t, 1, s, h, b)), "r"(coord(t, 2, s, h, b)),
+      "r"(coord(t, 3, s, h, b))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a tile stored with the 128-byte swizzle (rows of 128 bytes,
+// the pattern repeating every 8 rows = 1024 bytes; tiles 1024-aligned).
+// K-major operands: `lbo` unused, `sbo` = 1024 (next 8 rows).  MN-major
+// operands: `lbo` = bytes to the next 64 columns of N, `sbo` = 1024 (next
+// 8 rows of K).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asm statement this follows or precedes.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Two fp32 values as a bf16 pair (lo half = a), and what rounding left.
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t* hi,
+                                           uint32_t* lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  *hi = *reinterpret_cast<uint32_t*>(&h);
+  *lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// D (64 x 64, fp32) = A (64 x 16) * B (16 x 64) (+ D when `accumulate`),
+// A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) = A (64 x 16, bf16 in registers) * B (16 x 64) (+ D
+// when `accumulate`), B in shared memory, MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// D (64 x 128, fp32) = A (64 x 16, bf16 in registers) * B (16 x 128) (+ D
+// when `accumulate`), B in shared memory, MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// libcuda's cuTensorMapEncodeTiled, from the libcuda.so.1 that the CUDA
+// runtime has loaded (no -lcuda at link time); null if absent.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Map a (B, heads, S, D) bf16 tensor with element strides st = (b, h, s)
+// and a contiguous last axis, in boxes of 64 columns x `box_rows` rows with
+// the 128-byte swizzle; rows past S read as zeros.  The outer dimensions go
+// to the map in order of stride (a size-1 dimension last), so the
+// transposed (B, S, H, D) views of the training path map as well as
+// contiguous tensors.  Returns 0 or a cudaError_t.
+inline int make_view(TmaView* out, const void* ptr, const long long* st,
+                     int B, int heads, int S, int D, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorInitializationError);
+  struct Dim {
+    unsigned long long size, stride;
+    int which;  // 0 = s, 1 = h, 2 = b
+  } dims[3] = {{(unsigned long long)S, (unsigned long long)st[2], 0},
+               {(unsigned long long)heads, (unsigned long long)st[1], 1},
+               {(unsigned long long)B, (unsigned long long)st[0], 2}};
+  auto key = [](const Dim& x) {
+    return x.size == 1 ? ~0ull : x.stride;
+  };
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j + 1 < 3 - i; ++j)
+      if (key(dims[j + 1]) < key(dims[j])) {
+        Dim t = dims[j];
+        dims[j] = dims[j + 1];
+        dims[j + 1] = t;
+      }
+  cuuint64_t gdim[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t gstride[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  cuuint32_t estride[4] = {1, 1, 1, 1};
+  unsigned long long prev = (unsigned long long)D * 2;  // bytes
+  for (int i = 0; i < 3; ++i) {
+    gdim[i + 1] = dims[i].size;
+    // A dimension of size 1 is never stepped; give it the packed stride.
+    unsigned long long bytes = dims[i].size == 1 ? prev : dims[i].stride * 2;
+    gstride[i] = bytes;
+    prev = bytes * dims[i].size;
+    const int slot = i + 1;
+    if (dims[i].which == 0) {
+      out->slot_s = slot;
+      box[slot] = (cuuint32_t)box_rows;
+    } else if (dims[i].which == 1) {
+      out->slot_h = slot;
+    } else {
+      out->slot_b = slot;
+    }
+  }
+  CUresult r = encode(&out->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(ptr), gdim, gstride, box, estride,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hopper

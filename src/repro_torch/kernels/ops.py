@@ -115,7 +115,7 @@ _SIGNATURES = {  # C entry: (library, argument types)
     "repro_spmv_ell_panel": ("spmv", [_P] * 5 + [_L] + [_I] * 5 + [_P]),
     "repro_flash_attention": ("flash_attention", _FLASH_TAIL(5)),
     "repro_flash_attention_lse": ("flash_attention", _FLASH_TAIL(6)),
-    "repro_flash_attention_bwd_dkv": ("flash_attention", _FLASH_TAIL(9)),
+    "repro_flash_attention_bwd_dkv": ("flash_attention", _FLASH_TAIL(11)),
     "repro_flash_attention_bwd_dq": ("flash_attention", _FLASH_TAIL(8)),
 }
 
@@ -752,6 +752,7 @@ def spmv_ell_panel_kernel(vals: torch.Tensor, cols: torch.Tensor,
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
 _FLASH_HEAD_DIMS = (64, 128)
+_DKV_KEYS = 128  # keys of a bf16 dk/dv block (flash_attention.cu tc::kRows)
 
 
 def _flash_shapes(q, k, v, name):
@@ -781,6 +782,22 @@ def _rows_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _check_tma(name, *tensors):
+    """The bf16 kernels load these by TMA: 16-byte-aligned data and byte
+    strides that are multiples of 16 (dimensions of size 1 are never
+    stepped)."""
+    for t in tensors:
+        if t.dtype != torch.bfloat16:
+            continue
+        bad = [st for n, st in zip(t.shape[:3], t.stride()[:3])
+               if n > 1 and (st * t.element_size()) % 16]
+        _check(t.data_ptr() % 16 == 0 and not bad,
+               f"{name}: the bf16 kernels load by TMA, which needs 16-byte-"
+               f"aligned data and strides of a multiple of 16 bytes; got a "
+               f"view with strides {tuple(t.stride())} at address "
+               f"{t.data_ptr():#x}")
+
+
 def _strides(*tensors):
     """The (b, h, s) element strides of each tensor, as a C array."""
     vals = [st for t in tensors for st in t.stride()[:3]]
@@ -802,6 +819,7 @@ def _flash_tail(shapes, causal, window, scale, x):
 def _launch_flash_fwd(q, k, v, causal, window, scale, with_lse: bool):
     shapes = _flash_shapes(q, k, v, "flash_attention")
     q, k, v = (_rows_contiguous(t) for t in (q, k, v))
+    _check_tma("flash_attention", q, k, v)
     b, h, _, sq, _, _ = shapes
     o = torch.empty_like(q)  # q's layout: (B, S, H, D) views stay so
     tail = _flash_tail(shapes, causal, window, scale, q)
@@ -834,28 +852,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None, impl: str = "cuda"):
     """``(dq, dk, dv)`` from the forward's residuals and ``do``
-    (``flash_attention_bwd_kernel``): ``delta = rowsum(do·o)`` as a tensor
-    op, then the dk/dv pass and the dq pass, counted as one launch.  Each
-    gradient has its input's dtype and layout."""
+    (``flash_attention_bwd_kernel``): the dk/dv entry computes ``delta =
+    rowsum(do·o)`` with a kernel of its own and then runs the dk/dv pass,
+    the dq entry the dq pass; the two count as one launch.  Each gradient
+    has its input's dtype and layout."""
     if not _use_kernel(impl, q):
         return ref.flash_attention_bwd(q, k, v, o, lse, do, causal, window,
                                        scale)
     shapes = _flash_shapes(q, k, v, "flash_attention_bwd")
     _check(do.shape == q.shape and do.dtype == q.dtype
-           and o.shape == q.shape,
+           and o.shape == q.shape and o.dtype == q.dtype,
            f"flash_attention_bwd: do {tuple(do.shape)} {do.dtype} and o "
-           f"{tuple(o.shape)} must match q {tuple(q.shape)} {q.dtype}")
+           f"{tuple(o.shape)} {o.dtype} must match q {tuple(q.shape)} "
+           f"{q.dtype}")
     _check(lse.shape == q.shape[:3] and lse.dtype == torch.float32,
            f"flash_attention_bwd: lse must be (B, H, Sq) float32, got "
            f"{tuple(lse.shape)} {lse.dtype}")
-    q, k, v, do = (_rows_contiguous(t) for t in (q, k, v, do))
+    q, k, v, do, o = (_rows_contiguous(t) for t in (q, k, v, do, o))
+    _check_tma("flash_attention_bwd", q, k, v, do)
     lse = lse.contiguous()
-    delta = (do.float() * o.float()).sum(dim=-1).contiguous()
+    delta = torch.empty_like(lse)  # written by the dk/dv entry
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    partial = None  # the bf16 dk/dv pass's fp32 sums: 2 * D per key row
+    if q.dtype == torch.bfloat16:
+        b, _, kvh, _, skv, d = shapes
+        rows = b * kvh * -(-skv // _DKV_KEYS) * _DKV_KEYS
+        partial = torch.empty(rows * 2 * d, dtype=torch.float32,
+                              device=q.device)
     tail = _flash_tail(shapes, causal, window, scale, q)
     _launch("repro_flash_attention_bwd_dkv", _ptr(q), _ptr(k), _ptr(v),
-            _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-            _strides(q, k, v, do, dk, dv), *tail)
+            _ptr(do), _ptr(o), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+            _ptr(partial), _strides(q, k, v, do, o, dk, dv), *tail)
     _launch("repro_flash_attention_bwd_dq", _ptr(q), _ptr(k), _ptr(v),
             _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
             _strides(q, k, v, do, dq), *tail)

@@ -437,7 +437,7 @@ class PagedKVCache:
             dst = free.pop()
             for pool in pools:
                 pool[:, dst].copy_(pool[:, src])
-            refs[src] -= 1
+            self._drop_ref(refs, free, src)
             refs[dst] = 1
             pt[seq, pi] = dst
         return dataclasses.replace(

@@ -197,6 +197,15 @@ def test_grad_call_launches_fwd_lse_then_both_backward_passes(monkeypatch):
     assert [c[0] for c in stub.calls] == [
         "repro_flash_attention_lse", "repro_flash_attention_bwd_dkv",
         "repro_flash_attention_bwd_dq"]
+    # The dk/dv entry computes delta itself: it takes o (the forward's
+    # output, as saved) after do, with o's strides after do's, and fills
+    # the delta buffer that the dq entry then reads.
+    dkv, dq = stub.calls[1][1], stub.calls[2][1]
+    assert dkv[4].value == o.data_ptr()
+    strides = list(dkv[10])
+    assert len(strides) == 21
+    assert strides[12:15] == list(o.stride()[:3])
+    assert dkv[6].value == dq[5].value  # delta
     counts = ops.launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_fwd"],
             counts["flash_attention_bwd"]) == (0, 1, 1)
@@ -266,6 +275,13 @@ CARD_CASES = [
     (1, 8, 2, 300, 300, 64, True, 48),
     (1, 2, 1, 70, 130, 128, False, 40),
     (1, 4, 2, 130, 60, 64, True, None),
+    # chip_smoke's bf16 cases of the tensor-core route: a ragged non-causal
+    # S = 1000, a causal window of 256, Sq != Skv with rows 95.. fully
+    # masked (o = 0, lse = -1e30), and D = 64.
+    (1, 4, 1, 1000, 1000, 128, False, None),
+    (1, 4, 1, 1024, 1024, 128, True, 256),
+    (1, 4, 2, 200, 64, 128, True, 32),
+    (2, 8, 2, 512, 512, 64, True, None),
 ]
 
 
@@ -318,10 +334,10 @@ def test_flash_kernels_match_plain_on_card(cuda, case, dtype, layout):
 
 
 @pytest.mark.cuda
-def test_flash_kernels_are_deterministic_on_card(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])  # both routes
+def test_flash_kernels_are_deterministic_on_card(cuda, dtype):
     q, k, v, do = _inputs(10, 2, 8, 2, 512, 128, extra=1)
-    tq, tk, tv, tdo = (_card(a, cuda, "bfloat16", "bshd")
-                       for a in (q, k, v, do))
+    tq, tk, tv, tdo = (_card(a, cuda, dtype, "bshd") for a in (q, k, v, do))
     runs = []
     for _ in range(2):
         o, lse = ops.flash_attention_fwd(tq, tk, tv)

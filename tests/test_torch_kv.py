@@ -180,3 +180,78 @@ def test_random_op_sequences_match_jax(jx, kv_dtype, seed):
     for slot in range(GEOMETRY["batch"]):
         pair.apply("release", slot)
     assert sorted(pair.t.free) == list(range(GEOMETRY["pool_pages"]))
+
+
+def _fuzz_walk(cache, rng, n_ops):
+    """``tests/test_prefix_sharing.py::test_refcount_lifecycle_fuzz``'s walk
+    of allocate / share / trim / release / retain / copy-on-write, on a
+    cache of either package.  After every operation each page is owned or
+    free, never both or neither; at the end every page is free.  Returns
+    the final cache."""
+    batch, pool = cache.page_table.shape[0], cache.total_pages
+    page = cache.page_size
+    retained: list = []
+
+    def conserved():
+        assert int(cache.refcounts.sum()) == (
+            int(cache.mapped.sum()) + len(retained))
+        owned = {p for p in range(pool) if cache.refcounts[p] > 0}
+        assert not (owned & set(cache.free))
+        assert len(owned) + len(cache.free) == pool
+
+    for _ in range(n_ops):
+        op = rng.choice(["alloc", "share", "trim", "release", "retain",
+                         "unretain", "cow"])
+        seq = int(rng.integers(0, batch))
+        used = int(cache.mapped[seq])
+        if op == "alloc":
+            n = int(rng.integers(1, 3))
+            if n <= cache.n_free and used + n <= cache.pages_per_seq:
+                cache = cache.allocate(seq, n)
+        elif op == "share":
+            src = int(rng.integers(0, batch))
+            n_src = int(cache.mapped[src])
+            if src != seq and n_src and used + n_src <= cache.pages_per_seq:
+                ids = [int(p) for p in cache.page_table_host[src, :n_src]]
+                cache = cache.share(seq, ids)
+        elif op == "trim":
+            cache = cache.trim(seq, int(rng.integers(0, used + 1)))
+        elif op == "release":
+            cache = cache.release(seq)
+        elif op == "retain" and used:
+            p = int(cache.page_table_host[seq, int(rng.integers(0, used))])
+            cache = cache.retain_pages([p])
+            retained.append(p)
+        elif op == "unretain" and retained:
+            p = retained.pop(int(rng.integers(0, len(retained))))
+            cache = cache.release_pages([p])
+        elif op == "cow" and used:
+            try:
+                cache, _ = cache.ensure_writable(seq, 0, used * page - 1)
+            except OutOfPages as err:
+                assert "copy-on-write needs" in str(err)
+        conserved()
+    for seq in range(batch):
+        cache = cache.release(seq)
+    cache = cache.release_pages(retained)
+    retained.clear()
+    conserved()
+    assert sorted(cache.free) == list(range(pool))
+    return cache
+
+
+def test_cow_of_a_doubly_mapped_page_frees_it():
+    """Copy-on-write of a slot that maps one physical page twice.
+
+    At seed 58 with 30 operations the fuzz walk of
+    ``tests/test_prefix_sharing.py`` shares a slot's pages into a slot
+    that already maps them (slot 0's table becomes ``[9, 8, 9, 8]``, each
+    page with two owners, both slot 0).  Copying both entries drops both
+    owners; the reference only decrements, so pages 8 and 9 end up neither
+    owned nor free (ROADMAP §C1, which ``repro`` keeps).  The port frees a
+    page whose last owner the copy drops: conservation holds after every
+    operation and every page is free at the end.
+    """
+    cache = PagedKVCache.create(CFG, batch=3, max_len=32, page=4,
+                                pool_pages=10, device="cpu")
+    _fuzz_walk(cache, np.random.default_rng(58), 30)
