@@ -14,11 +14,18 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    D=128, page 16, batch 8; verify with K=4 queries per sequence), fp32
    and int8 pools; the strided converters at the rwkv6-3b and Mamba
    (yi-6b width) state-pool shapes, fp32 and bf16 rows, plus odd row
-   widths.  Data movement must match bitwise, attention within rtol = atol
-   = 1e-5 (float32 sums in another order).  A poison check puts NaN in
-   every unmapped page: the attention outputs must stay finite.  Kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call are timed with CUDA events (median of 25).
+   widths.  The indirect gather also on each copy unit of its plan
+   (16 bytes: fp32 32 KB pages, int8 8 KB pages and their 256 B scale
+   rows, 256 B fp32 rows; 4 bytes: 32 KB and 4108 B fp32 rows 4 bytes off
+   alignment; 1 byte: 4099 B int8 rows 3 bytes off), with indices below
+   and past the rows (clipped), each case printing its route.  Data movement must match
+   bitwise, attention within rtol = atol = 1e-5 (float32 sums in another
+   order).  A poison check puts NaN in every unmapped page: the attention
+   outputs must stay finite.  Kernel, plain version and, where one PyTorch
+   call computes the same function, that call are timed with CUDA events
+   (median of 25); the gather, its first design, ``index_select`` and the
+   launch floor (a one-row gather of 16 bytes) also by the profiler's
+   device time, since an event-timed call of a few µs sits on the floor.
 3. Paper workloads: first the three workload kernels against their plain
    versions, then the port's workload functions (``repro_torch.workloads``)
    at sizes their users run, with the launch counts reset just before:
@@ -36,9 +43,12 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    port's bus model and bank simulator.  The panel-streamed SpMV, which no
    workload calls, is checked on 2**20 panel-sorted rows (K = 32, 4 steps,
    panel 512, row blocks of 64, C = 2**22) with a few entries outside
-   their panel, which must be masked.  Kernel, plain version and the
-   library call (``x.t().contiguous()``, the cuSPARSE CSR matvec) are
-   timed with CUDA events.
+   their panel, which must be masked, on each route of its plan: bulk by
+   default, cp.async with x 4 bytes off alignment, and row blocks of 300
+   and 100 rows with K/steps of 3 and 1; each case prints its route.
+   Kernel, plain version and the library call (``x.t().contiguous()``,
+   the cuSPARSE CSR matvec) are timed with CUDA events; the panel kernel
+   on both routes, its first design and cuSPARSE also by the profiler.
 4. Paged serving: full-width yi-6b (32 layers, d_model 4096, 32/4 heads,
    vocab 64000; random weights from a seeded torch.Generator) through the
    port's ``Scheduler``: 8 requests, prompts of 17-300 tokens, 32 new
@@ -87,7 +97,13 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    equal the straight run's bit for bit.
 
 It prints a JSON line with one entry per kernel, the card's name and power
-limit, and as its last line ``{"ok": true, "device": {...}}``.  Without a
+limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
+of the gather and the panel SpMV add ``kernel_route``, ``ms_before`` (the
+first design), ``device_ms`` / ``device_ms_before`` / ``library_device_ms``
+(profiler), and for the gather ``slab_bytes``, ``launch_floor_ms`` /
+``launch_floor_device_ms``, the routes checked and under ``shapes`` the
+same times for the int8 codes and scale rows, for the panel SpMV
+``ms_cp_async`` / ``device_ms_cp_async``.  Without a
 GPU, or outside a checkout of the repository, it exits nonzero and prints
 no result.
 """
@@ -178,6 +194,21 @@ REPORTED.update(strided_gather="rwkv6-3b s", strided_scatter="rwkv6-3b s",
                 spmv_ell_panel_kernel="2^20 rows", flash_attention="path bf16",
                 flash_attention_fwd="path bf16",
                 flash_attention_bwd="path bf16")
+
+#: Extra keys of the redesigned kernels' rows (the gather, the panel SpMV):
+#: the route their plan took, the first design's time, profiler device
+#: times beside the event times, the gather's launch floor (one 16-byte
+#: row), the routes it was checked on, its slab and its other path shapes,
+#: and the panel SpMV's cp.async route (x off alignment) timed.
+REDESIGN_KEYS = ("kernel_route", "ms_before", "device_ms", "device_ms_before",
+                 "library_device_ms", "launch_floor_ms",
+                 "launch_floor_device_ms", "ms_cp_async",
+                 "device_ms_cp_async", "routes", "slab_bytes", "shapes")
+#: The keys of the gather's other path shapes (int8 codes, int8 scale rows)
+#: under ``shapes`` in its row.
+SHAPE_KEYS = ("kernel_route", "slab_bytes", "ms", "device_ms", "ms_before",
+              "device_ms_before", "library_ms", "library_device_ms",
+              "bound_ms")
 
 # Sizes of the paper-workloads phase.
 ISMT_N = 16384
@@ -297,6 +328,31 @@ def profile_step(fn, top: int = 6):
         kernels=sum(r[1] for r in rows),
         top=[dict(name=k[:60], ms=us / 1e3, count=c)
              for us, c, k in rows[:top]])
+
+
+def profile_ms(fn, n: int = N_TIMED, tries: int = 3):
+    """Device time of one call of ``fn`` from ``torch.profiler``: the
+    kernels' summed time over ``n`` back-to-back calls, over ``n``.  For a
+    call of a few µs, event timing (:func:`time_ms`) stays on the launch
+    floor (~5 µs), while this counts only the kernels' own time.  A session
+    now and then records no device time at all; it is taken again, up to
+    ``tries`` sessions, and then the run fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+                 for ev in prof.key_averages())
+        if us > 0:
+            return us / 1e3 / n
+    raise SmokeFailure(f"profiler: no device time in {tries} sessions")
 
 
 # ---------------------------------------------------------------------------
@@ -451,20 +507,21 @@ def check_kernels(ops, dev, lens, bw, flops):
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes, ops=4 * h * d * seen)
 
-        # -- gather: the prefill window read, 3 pages for each of 8 rows.
-        flat = kp.view(pool, -1)
+        # -- gather: the prefill window read, 3 pages for each of 8 rows
+        #    (int8: the codes, then the scale rows).
         idx = table[:, :3].reshape(-1).contiguous()
-        run = lambda: ops.indirect_gather(flat, idx)
-        plain = lambda: ops.indirect_gather(flat, idx, impl="ref")
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"indirect_gather {tag}: not bitwise")
-        row = flat.shape[1] * flat.element_size()
-        idx64 = idx.long()
-        records[("indirect_gather", tag)] = dict(
-            max_abs_err=0.0, ms=time_ms(run), plain_ms=time_ms(plain),
-            library_ms=time_ms(lambda: torch.index_select(flat, 0, idx64)),
-            bytes=2 * idx.numel() * row + idx.numel() * 4, ops=0)
+        shapes = [(tag, f"{tag} pages", kp.view(pool, -1))]
+        if quantized:
+            shapes.append((f"{tag} scale rows",) * 2 + (ks.view(pool, -1),))
+        for stag, what, flat in shapes:
+            check_gather(ops, flat, idx, what)
+            row = flat.shape[1] * flat.element_size()
+            records[("indirect_gather", stag)] = dict(
+                max_abs_err=0.0,
+                plain_ms=time_ms(lambda: ops.indirect_gather(flat, idx,
+                                                             impl="ref")),
+                bytes=2 * idx.numel() * row + idx.numel() * 4, ops=0,
+                **gather_times(ops, flat, idx))
 
         # -- scatter: the decode append, one row per sequence, one dropped.
         dst = kp.view(pool * PAGE, -1)
@@ -491,7 +548,95 @@ def check_kernels(ops, dev, lens, bw, flops):
             bytes=2 * BATCH * row + BATCH * 4, ops=0)
 
     records.update(check_strided(ops, dev))
-    return add_bounds(records, bw, flops)
+    records = add_bounds(records, bw, flops)
+    rec = records[("indirect_gather", REPORTED["indirect_gather"])]
+    rec.update(check_gather_routes(ops, dev))
+    rec["shapes"] = {
+        stag: {key: records[("indirect_gather", stag)][key]
+               for key in SHAPE_KEYS}
+        for stag in ("int8", "int8 scale rows")}
+    return records
+
+
+def gather_times(ops, src, idx):
+    """The gather's event and profiler times at one shape, beside its first
+    design's and ``index_select``'s (the first design checked bitwise
+    first), and the route and slab its plan took."""
+    want = ops.indirect_gather(src, idx, impl="ref")
+    before = lambda: ops.indirect_gather_before(src, idx)
+    require(torch.equal(before(), want),
+            f"indirect_gather {tuple(src.shape)}: the first design is not "
+            "bitwise")
+    run = lambda: ops.indirect_gather(src, idx)
+    idx64 = idx.long()
+    library = lambda: torch.index_select(src, 0, idx64)
+    run()
+    plan = ops.indirect_gather.plan
+    return dict(
+        kernel_route=plan.route, slab_bytes=plan.slab_bytes, ms=time_ms(run),
+        ms_before=time_ms(before), library_ms=time_ms(library),
+        device_ms=profile_ms(run), device_ms_before=profile_ms(before),
+        library_device_ms=profile_ms(library))
+
+
+def check_gather(ops, src, idx, what):
+    """``ops.indirect_gather`` against its plain version, bitwise, with one
+    launch; logs and returns the route its plan took."""
+    before = ops.indirect_gather.launches
+    got = ops.indirect_gather(src, idx)
+    want = ops.indirect_gather(src, idx, impl="ref")
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"indirect_gather {what}: not bitwise")
+    require(ops.indirect_gather.launches == before + 1,
+            f"indirect_gather {what}: not one launch")
+    plan = ops.indirect_gather.plan
+    log(f"indirect_gather {what}, {idx.numel()} rows of "
+        f"{src[0].numel() * src.element_size()} B, indices "
+        f"{int(idx.min())}..{int(idx.max())} of {src.shape[0]} rows: "
+        f"bitwise, route {plan.route}, plan {plan}")
+    return plan.route
+
+
+def offset_copy(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past a
+    256-byte boundary."""
+    flat = t.reshape(-1).view(torch.int8)
+    buf = torch.empty(flat.numel() + 256, dtype=torch.int8, device=t.device)
+    view = buf[offset:offset + flat.numel()]
+    view.copy_(flat)
+    return view.view(t.dtype).view(t.shape)
+
+
+def check_gather_routes(ops, dev):
+    """Every copy unit of the gather, bitwise against the plain version
+    with indices below and past the rows: 16-byte units on aligned rows,
+    4- and 1-byte units on rows off 16-byte alignment; then the launch
+    floor, one 16-byte row, by events and by the profiler.  Returns the
+    routes (units) taken and the floor's times."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    idx = torch.randint(-249, 452, (24,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pages = torch.randn((256, 8192), generator=gen, device=dev)
+    codes = torch.randint(-128, 128, (256, 4099), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    cases = {
+        "fp32 32 KB rows": (pages, 16),
+        "fp32 32 KB rows at +4 B": (offset_copy(pages, 4), 4),
+        "int8 4099 B rows at +3 B": (offset_copy(codes, 3), 1),
+        "fp32 4108 B rows at +4 B": (
+            offset_copy(pages[:, :1027].contiguous(), 4), 4),
+        "fp32 256 B rows": (pages[:, :64].contiguous(), 16),
+    }
+    routes = {}
+    for what, (src, unit) in cases.items():
+        routes[what] = check_gather(ops, src, idx, what)
+        require(ops.indirect_gather.plan.unit == unit,
+                f"indirect_gather {what}: {routes[what]}, not {unit}-byte")
+    one_src = torch.zeros((1, 4), device=dev)
+    one_idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor = lambda: ops.indirect_gather(one_src, one_idx)
+    return dict(routes=routes, launch_floor_ms=time_ms(floor),
+                launch_floor_device_ms=profile_ms(floor))
 
 
 def add_bounds(records, bw, flops, rate="fp32"):
@@ -676,42 +821,95 @@ def check_workload_kernels(ops, ref, dev, bw, flops, graph):
 
     # -- panel SpMV: panel-sorted columns, plus 1 in 64 entries moved to
     #    another panel, which the kernel must mask.
-    row_blocks, kb = PANEL_R // PANEL_ROWS, SPMV_K // PANEL_STEPS
-    n_panels = SPMV_R // PANEL
-    pids = torch.randint(0, n_panels, (row_blocks, PANEL_STEPS),
-                         generator=gen, device=dev, dtype=torch.int32)
-    base = (pids.repeat_interleave(PANEL_ROWS, 0)
-            .repeat_interleave(kb, 1) * PANEL)
-    pc = base + torch.randint(0, PANEL, (PANEL_R, SPMV_K), generator=gen,
-                              device=dev, dtype=torch.int32)
-    stray = torch.rand((PANEL_R, SPMV_K), generator=gen, device=dev) < 1 / 64
-    shift = torch.randint(1, n_panels, (PANEL_R, SPMV_K), generator=gen,
-                          device=dev, dtype=torch.int32) * PANEL
-    pc = torch.where(stray, (pc + shift) % SPMV_R, pc)
-    pv = torch.randn((PANEL_R, SPMV_K), generator=gen, device=dev)
+    row_blocks = PANEL_R // PANEL_ROWS
+    pv, pc, pids, stray = panel_matrix(dev, gen, row_blocks, PANEL_ROWS,
+                                       SPMV_K, PANEL_STEPS, SPMV_R, PANEL)
     run = lambda: ops.spmv_ell_panel_kernel(pv, pc, x, pids, panel=PANEL)
     plain = lambda: ref.spmv_ell_panel(pv, pc, x, pids, panel=PANEL)
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    perr = (got - want).abs().max().item()
-    require(torch.allclose(got, want, **TOL),
-            f"spmv_ell_panel_kernel: max abs err {perr:.3e} over {TOL}")
-    unmasked = ref.spmv_ell(pv, pc, x)
-    require(bool(stray.any()) and not torch.allclose(got, unmasked, **TOL),
-            "spmv_ell_panel_kernel: the stray entries were not masked")
+    perr, route, want = check_panel(ops, ref, pv, pc, x, pids, stray,
+                                    "2^20 rows", expect="bulk")
     inside = ~stray
     csr = csr_of(pv, pc, inside, x.numel())
     require(torch.allclose(torch.mv(csr, x), want, **TOL),
             "cuSPARSE CSR matvec disagrees with the plain panel spmv")
+    before = lambda: ops.spmv_ell_panel_before(pv, pc, x, pids, panel=PANEL)
+    require(torch.allclose(before(), want, **TOL),
+            "spmv_ell_panel_kernel: the first design disagrees")
+    # x 4 bytes off a 16-byte boundary: the cp.async route.
+    x_off = offset_copy(x, 4)
+    errs = [check_panel(ops, ref, pv, pc, x_off, pids, stray,
+                        "2^20 rows, x at +4 B", expect="cp.async")[0]]
+    cp_async = lambda: ops.spmv_ell_panel_kernel(pv, pc, x_off, pids,
+                                                 panel=PANEL)
+    library = lambda: torch.mv(csr, x)
     panel_bytes = row_blocks * PANEL_STEPS * PANEL * 4
     records[("spmv_ell_panel_kernel", REPORTED["spmv_ell_panel_kernel"])] = \
         dict(max_abs_err=perr, ms=time_ms(run), plain_ms=time_ms(plain),
-             library_ms=time_ms(lambda: torch.mv(csr, x)),
+             library_ms=time_ms(library),
              bytes=pv.numel() * 8 + x.numel() * 4 + PANEL_R * 4,
-             ops=2 * int(inside.sum()), panel_bytes_read=panel_bytes)
-    del pv, pc, pids, base, stray, shift, got, want, unmasked, csr
+             ops=2 * int(inside.sum()), panel_bytes_read=panel_bytes,
+             kernel_route=route, ms_before=time_ms(before),
+             ms_cp_async=time_ms(cp_async), device_ms=profile_ms(run),
+             device_ms_before=profile_ms(before),
+             device_ms_cp_async=profile_ms(cp_async),
+             library_device_ms=profile_ms(library))
+    del pv, pc, pids, stray, want, x_off, csr
+    # Row blocks that are not a multiple of 64 rows, K / steps of 3 and 1.
+    for rb, k, steps, panel in ((300, 9, 3, 1024), (100, 4, 4, 512)):
+        m = panel_matrix(dev, gen, 512, rb, k, steps, SPMV_R, panel)
+        errs.append(check_panel(ops, ref, *m[:2], x, *m[2:],
+                                f"row_block {rb}, K/steps {k // steps}",
+                                panel=panel)[0])
+    rec = records[("spmv_ell_panel_kernel", REPORTED["spmv_ell_panel_kernel"])]
+    rec["max_abs_err"] = max(rec["max_abs_err"], *errs)  # over every route
     torch.cuda.empty_cache()
     return add_bounds(records, bw, flops)
+
+
+def panel_matrix(dev, gen, row_blocks, row_block, k, steps, n_cols, panel):
+    """A panel-sorted ELL matrix for ``spmv_ell_panel_kernel``: step s of
+    row block b draws its columns from panel ``panel_ids[b, s]``, then 1 in
+    64 entries moves to another panel (``stray``), where it must be
+    masked.  Returns (vals, cols, panel_ids, stray)."""
+    r, kb, n_panels = row_blocks * row_block, k // steps, n_cols // panel
+    pids = torch.randint(0, n_panels, (row_blocks, steps), generator=gen,
+                         device=dev, dtype=torch.int32)
+    base = (pids.repeat_interleave(row_block, 0)
+            .repeat_interleave(kb, 1) * panel)
+    cols = base + torch.randint(0, panel, (r, k), generator=gen, device=dev,
+                                dtype=torch.int32)
+    stray = torch.rand((r, k), generator=gen, device=dev) < 1 / 64
+    shift = torch.randint(1, n_panels, (r, k), generator=gen, device=dev,
+                          dtype=torch.int32) * panel
+    cols = torch.where(stray, (cols + shift) % n_cols, cols)
+    vals = torch.randn((r, k), generator=gen, device=dev)
+    return vals, cols, pids, stray
+
+
+def check_panel(ops, ref, vals, cols, x, pids, stray, what, panel=PANEL,
+                expect=None):
+    """``ops.spmv_ell_panel_kernel`` within TOL of its plain version, with
+    one launch and the stray entries masked; logs the route.  Returns
+    (max abs err, route, the plain result)."""
+    before = ops.spmv_ell_panel_kernel.launches
+    got = ops.spmv_ell_panel_kernel(vals, cols, x, pids, panel=panel)
+    want = ref.spmv_ell_panel(vals, cols, x, pids, panel=panel)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    plan = ops.spmv_ell_panel_kernel.plan
+    log(f"spmv_ell_panel_kernel {what}: route {plan.route}, max abs err "
+        f"{err:.3e}, plan {plan}")
+    require(torch.allclose(got, want, **TOL),
+            f"spmv_ell_panel_kernel {what}: max abs err {err:.3e} over {TOL}")
+    require(ops.spmv_ell_panel_kernel.launches == before + 1,
+            f"spmv_ell_panel_kernel {what}: not one launch")
+    require(expect is None or plan.route == expect,
+            f"spmv_ell_panel_kernel {what}: route {plan.route}, not {expect}")
+    unmasked = ref.spmv_ell(vals, cols, x)
+    require(bool(stray.any()) and not torch.allclose(got, unmasked, **TOL),
+            f"spmv_ell_panel_kernel {what}: the stray entries were not "
+            "masked")
+    return err, plan.route, want
 
 
 def make_graph(dev):
@@ -1653,6 +1851,7 @@ def main() -> int:
             bound_rate=rec["bound_rate"],
             **({"bound_fp32_ms": rec["bound_fp32_ms"]}
                if "bound_fp32_ms" in rec else {}),
+            **{key: rec[key] for key in REDESIGN_KEYS if key in rec},
             max_err=err, kernel_ms=rec["ms"],  # the same, under other names
         ))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
-// TMA tile loads through 4-D tensor maps, wgmma descriptors and products.
-// Included by flash_attention.cu; build.py hashes this header into the
-// library name of every source, so an edited header forces a rebuild.
+// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads through 4-D
+// tensor maps and 1-D bulk loads, wgmma descriptors and products.
+// Included by flash_attention.cu and spmv.cu; build.py hashes this header
+// into the library name of every source, so an edited header forces a
+// rebuild.
 #pragma once
 
 #include <cuda.h>
@@ -103,6 +104,35 @@ __device__ __forceinline__ void tma_load(void* dst, const TmaView& t,
       "l"(reinterpret_cast<uint64_t>(&t.map)), "r"(smem_u32(bar)), "r"(d0),
       "r"(coord(t, 1, s, h, b)), "r"(coord(t, 2, s, h, b)),
       "r"(coord(t, 3, s, h, b))
+      : "memory");
+}
+
+// 1-D bulk loads (no tensor map): `bytes` a multiple of 16, both
+// addresses 16-byte aligned.  Used by the panel SpMV.
+
+// L2 policies for a copy's source: read once and evict first, or keep.
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// Global -> shared under the L2 `policy`, completing `bytes` of
+// transaction count on `bar`.
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
       : "memory");
 }
 

@@ -20,15 +20,32 @@
 // KB, so the launch itself dominates; a recurrent state burst moves up to
 // 32 rows of 640 KB (rwkv6-3b's wkv state), where the copy rate matters.
 //
-// Design, indirect: one block per packed row, which reads its own index
-// (the TPU kernel's scalar prefetch becomes one scalar load).  Rows are
-// copied as raw bytes, so one kernel serves fp32 pages, int8 pages and fp32
-// scales; where the row length and both base pointers are 16-byte aligned,
-// each thread moves 16 bytes per load so that a warp reads 512 contiguous
-// bytes.  The scatter writes in place.  An index outside [0, n_rows) drops
-// its row: the callers send inactive and padding rows there instead of
-// padding the pool with a scratch row, which would copy the whole pool.
-// Duplicate in-range indices race; the paged callers never issue them.
+// Design, indirect gather: rows are copied as raw bytes, so one kernel
+// serves fp32 pages, int8 pages and fp32 scales, and the index is clipped
+// to [0, n_rows) (the reference's take(mode='clip')).  The path's call,
+// `ops.paged_kv_write_chunk`'s window read, gathers 24 rows of 32 KB: one
+// block per row (the first design, kept below as repro_indirect_gather_
+// before) put 24 blocks on 132 SMs, each thread with eight dependent
+// 16-byte round trips.  Now a 2-D grid, gathered row by slab of the row,
+// in one launch: each thread copies one unit a pass, so a block of 256
+// threads moves a 4 KB slab of 16-byte units and the 24 rows of 32 KB
+// spread over 192 blocks with every unit in flight at once.  The plan
+// (unit, slab, threads, grid) is chosen on the host from the row length
+// and the pointers' alignment (kernels/plans.py) and launched as given: 16-byte
+// units where the row length and both base pointers allow, else 4-byte,
+// else 1-byte, so any width (e.g. 4099 bytes) copies bitwise.  A TMA bulk
+// copy through shared memory (one thread a slab, on an mbarrier) ran
+// slower than these register copies at every row length tried on the
+// H100, 256 B to 64 KB, so the gather does not use it.
+//
+// Design, indirect scatter: one block per packed row, which reads its own
+// index (the TPU kernel's scalar prefetch becomes one scalar load); where
+// the row length and both base pointers are 16-byte aligned, each thread
+// moves 16 bytes per load so that a warp reads 512 contiguous bytes.  The
+// scatter writes in place.  An index outside [0, n_rows) drops its row:
+// the callers send inactive and padding rows there instead of padding the
+// pool with a scratch row, which would copy the whole pool.  Duplicate
+// in-range indices race; the paged callers never issue them.
 //
 // Design, strided: there is no index memory at all.  base, stride and count
 // are launch arguments and each block computes its row's address from them
@@ -65,15 +82,46 @@ __device__ __forceinline__ void copy_row(char* __restrict__ dst,
   }
 }
 
+__device__ __forceinline__ long long clip_row(const int* __restrict__ idx,
+                                              long long n_rows) {
+  const long long r = idx[blockIdx.x];
+  return r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);  // take(mode='clip')
+}
+
+// Gather: block (k, y) copies slabs y, y + gridDim.y, ... of gathered row
+// k, `slab` bytes each, in units of U (16, 4 or 1 bytes); with the plan's
+// slab of blockDim.x units each thread copies one unit a slab.  Indices
+// within a row are 32-bit (the plan caps a row at 2**30 units).  This loop
+// form measured faster on the H100 than a flat grid-stride loop over the
+// row's units, with a 64-bit or a 32-bit index.
+template <typename U>
 __global__ void indirect_gather_kernel(const char* __restrict__ src,
                                        const int* __restrict__ idx,
                                        char* __restrict__ out,
                                        long long n_rows, long long row_bytes,
-                                       bool vec16) {
+                                       int slab, int slabs) {
+  const U* s = reinterpret_cast<const U*>(src + clip_row(idx, n_rows) *
+                                                    row_bytes);
+  U* d = reinterpret_cast<U*>(out + (long long)blockIdx.x * row_bytes);
+  const int row_units = (int)(row_bytes / (long long)sizeof(U));
+  const int slab_units = slab / (int)sizeof(U);
+  for (int j = blockIdx.y; j < slabs; j += gridDim.y) {
+    const int lo = j * slab_units;
+    const int hi = min(lo + slab_units, row_units);
+    for (int i = lo + threadIdx.x; i < hi; i += blockDim.x) d[i] = s[i];
+  }
+}
+
+// The gather's first design (one block per row), kept for comparison on
+// the card (repro_indirect_gather_before); no caller of the port uses it.
+__global__ void gather_per_row_kernel(const char* __restrict__ src,
+                                      const int* __restrict__ idx,
+                                      char* __restrict__ out,
+                                      long long n_rows, long long row_bytes,
+                                      bool vec16) {
   const long long k = blockIdx.x;
-  long long r = idx[k];
-  r = r < 0 ? 0 : (r >= n_rows ? n_rows - 1 : r);  // clip, as take(mode=clip)
-  copy_row(out + k * row_bytes, src + r * row_bytes, row_bytes, vec16);
+  copy_row(out + k * row_bytes, src + clip_row(idx, n_rows) * row_bytes,
+           row_bytes, vec16);
 }
 
 __global__ void indirect_scatter_kernel(char* __restrict__ dst,
@@ -159,14 +207,45 @@ int strided(void* dst, const void* src, long long n_rows, long long base,
 
 }  // namespace
 
-// out[k] = src[idx[k]] for k < count; rows of row_bytes bytes.
+// out[k] = src[clip(idx[k])] for k < count; rows of row_bytes bytes, by
+// the host's plan (kernels/plans.py GatherPlan), taken as given: `unit`
+// bytes a copy (16, 4 or 1; it divides row_bytes and both pointers),
+// `slabs` slabs of `slab` bytes a row, grid (count, grid_y) of `threads`
+// threads.
 extern "C" int repro_indirect_gather(const void* src, const void* idx,
                                      void* out, long long n_rows,
                                      long long count, long long row_bytes,
-                                     void* stream) {
+                                     int unit, int slab, int slabs,
+                                     int grid_y, int threads, void* stream) {
+  if (count <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((unsigned)count, (unsigned)grid_y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const char* a = static_cast<const char*>(src);
+  const int* i = static_cast<const int*>(idx);
+  char* o = static_cast<char*>(out);
+  if (unit == 16) {
+    indirect_gather_kernel<int4><<<grid, threads, 0, s>>>(
+        a, i, o, n_rows, row_bytes, slab, slabs);
+  } else if (unit == 4) {
+    indirect_gather_kernel<int><<<grid, threads, 0, s>>>(
+        a, i, o, n_rows, row_bytes, slab, slabs);
+  } else {
+    indirect_gather_kernel<char><<<grid, threads, 0, s>>>(
+        a, i, o, n_rows, row_bytes, slab, slabs);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gather's first design: one block of 128 threads per gathered row.
+// For comparison on the card only.
+extern "C" int repro_indirect_gather_before(const void* src, const void* idx,
+                                            void* out, long long n_rows,
+                                            long long count,
+                                            long long row_bytes,
+                                            void* stream) {
   if (count > 0 && row_bytes > 0) {
-    indirect_gather_kernel<<<(unsigned)count, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    gather_per_row_kernel<<<(unsigned)count, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const char*>(src), static_cast<const int*>(idx),
         static_cast<char*>(out), n_rows, row_bytes,
         aligned16(src, out, row_bytes));

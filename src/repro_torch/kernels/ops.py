@@ -38,6 +38,14 @@ Each of the thirteen kernel wrappers counts its launches in an integer
 attribute, ``launches``, raised by one only where the kernel is launched
 (:func:`launch_counts`, :func:`reset_launch_counts`).  ``paged_verify``
 counts under its own name, not the prefill kernel's.
+
+``indirect_gather`` and ``spmv_ell_panel_kernel`` launch by a plan chosen
+on the host (:mod:`.plans`) from the shapes and the pointers' alignment
+(the gather's copy unit, the panel SpMV's route and tiling); each keeps
+its last plan as ``.plan``.  ``indirect_gather_before`` and
+``spmv_ell_panel_before`` launch the two kernels' first designs, only to
+time them beside the current ones on the card; nothing on a path calls
+them and they count nothing.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import torch
 
 from . import ref
 from .build import library
+from .plans import gather_plan, panel_plan
 
 __all__ = [
     "KERNELS",
@@ -57,6 +66,7 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_fwd",
     "indirect_gather",
+    "indirect_gather_before",
     "indirect_scatter",
     "launch_counts",
     "paged_decode_attention",
@@ -69,6 +79,7 @@ __all__ = [
     "reset_launch_counts",
     "speculative_accept",
     "spmv_ell",
+    "spmv_ell_panel_before",
     "spmv_ell_panel_kernel",
     "strided_gather",
     "strided_scatter",
@@ -103,7 +114,11 @@ _CONVERTER_ARGS = [_P] * 3 + [_L] * 3 + [_P]
 _FLASH_TAIL = lambda n: [_P] * n + [_I] * 9 + [_F, _I, _P]
 _STRIDED_ARGS = [_P] * 2 + [_L] * 5 + [_P]
 _SIGNATURES = {  # C entry: (library, argument types)
-    "repro_indirect_gather": ("stream_converters", _CONVERTER_ARGS),
+    # ... n_rows, count, row_bytes, then the plan: unit, slab, slabs,
+    # grid_y, threads.
+    "repro_indirect_gather": ("stream_converters",
+                              [_P] * 3 + [_L] * 3 + [_I] * 5 + [_P]),
+    "repro_indirect_gather_before": ("stream_converters", _CONVERTER_ARGS),
     "repro_indirect_scatter": ("stream_converters", _CONVERTER_ARGS),
     "repro_strided_gather": ("stream_converters", _STRIDED_ARGS),
     "repro_strided_scatter": ("stream_converters", _STRIDED_ARGS),
@@ -112,7 +127,11 @@ _SIGNATURES = {  # C entry: (library, argument types)
                             [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     "repro_tiled_transpose": ("transpose", [_P] * 2 + [_L] * 2 + [_I, _P]),
     "repro_spmv_ell": ("spmv", [_P] * 4 + [_L] + [_I] * 2 + [_P]),
-    "repro_spmv_ell_panel": ("spmv", [_P] * 5 + [_L] + [_I] * 5 + [_P]),
+    # ... row_blocks, row_block, k, steps, panel, c, then the plan: route,
+    # tile rows, pack, split, blocks, panels / vals / part bytes, smem.
+    "repro_spmv_ell_panel": ("spmv", [_P] * 5 + [_L] + [_I] * 14 + [_P]),
+    "repro_spmv_ell_panel_before": ("spmv",
+                                    [_P] * 5 + [_L] + [_I] * 5 + [_P]),
     "repro_flash_attention": ("flash_attention", _FLASH_TAIL(5)),
     "repro_flash_attention_lse": ("flash_attention", _FLASH_TAIL(6)),
     "repro_flash_attention_bwd_dkv": ("flash_attention", _FLASH_TAIL(11)),
@@ -267,7 +286,8 @@ def indirect_gather(src: torch.Tensor, indices: torch.Tensor,
     """out[k] = src[indices[k]] — packed indirect read.
 
     ``src`` is ``(n_rows, *row)`` of any dtype; rows are copied as bytes.
-    Indices are clipped to ``[0, n_rows)``.
+    Indices are clipped to ``[0, n_rows)``.  On the card the launch follows
+    :func:`.plans.gather_plan` (kept as ``indirect_gather.plan``).
     """
     if not _use_kernel(impl, src):
         return ref.indirect_gather(src, indices)
@@ -277,9 +297,40 @@ def indirect_gather(src: torch.Tensor, indices: torch.Tensor,
     _check(idx.dim() == 1, "indirect_gather: indices must be 1-D")
     out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    _launch("repro_indirect_gather", _ptr(src), _ptr(idx), _ptr(out),
-            src.shape[0], idx.shape[0], _row_bytes(src), _stream(src))
+    plan = gather_plan(_row_bytes(src), src.data_ptr() | out.data_ptr(),
+                       idx.shape[0])
+    _gather_launch(src, idx, out, plan)
+    indirect_gather.plan = plan
     indirect_gather.launches += 1
+    return out
+
+
+indirect_gather.plan = None  # the plan of the last launch
+
+
+def _gather_launch(src, idx, out, plan) -> None:
+    """Launch the gather kernel by ``plan`` (a :class:`.plans.GatherPlan`
+    for these rows and pointers)."""
+    _launch("repro_indirect_gather", _ptr(src), _ptr(idx), _ptr(out),
+            src.shape[0], idx.shape[0], _row_bytes(src), plan.unit,
+            plan.slab_bytes, plan.slabs, plan.grid_y, plan.threads,
+            _stream(src))
+
+
+def indirect_gather_before(src: torch.Tensor, indices: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`indirect_gather` on the card by its first design (one block
+    per row), to time it beside the current one.  Nothing on the port's
+    paths calls it, and it counts no launches."""
+    _check(src.is_cuda and src.is_contiguous() and src.dim() >= 1
+           and src.shape[0] > 0,
+           "indirect_gather_before: src must be a contiguous non-empty "
+           "CUDA tensor")
+    idx = _int32(indices, src.device)
+    out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    _launch("repro_indirect_gather_before", _ptr(src), _ptr(idx), _ptr(out),
+            src.shape[0], idx.shape[0], _row_bytes(src), _stream(src))
     return out
 
 
@@ -714,7 +765,9 @@ def spmv_ell_panel_kernel(vals: torch.Tensor, cols: torch.Tensor,
     copies).  Step ``s`` covers columns ``s*K/steps ..`` of the block's
     rows; an entry outside its step's panel is masked.  Raises where the
     reference asserts or cannot tile: ``R % row_blocks``, ``K % steps``,
-    ``C % panel``.
+    ``C % panel``.  On the card the launch follows :func:`.plans.panel_plan`
+    (kept as ``spmv_ell_panel_kernel.plan``), which raises where a row
+    block's panels do not fit in a block's shared memory.
     """
     r, k = vals.shape
     _check(panel_ids.dim() == 2, "spmv_ell_panel_kernel: panel_ids must be "
@@ -734,15 +787,38 @@ def spmv_ell_panel_kernel(vals: torch.Tensor, cols: torch.Tensor,
     vals, cols, x = _check_ell(vals, cols, x, "spmv_ell_panel_kernel")
     pids = _int32(panel_ids, x.device)
     row_block = r // row_blocks
-    smem = (2 * panel + row_block) * 4
-    _check(smem <= 232448, f"spmv_ell_panel_kernel: two panels of {panel} "
-           f"and {row_block} row sums need {smem} bytes of shared memory, "
-           f"more than a block's 232448")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (vals, cols, x))
+    plan = panel_plan(row_blocks, row_block, k, steps, panel, aligned)
     y = torch.empty(r, dtype=torch.float32, device=x.device)
     _launch("repro_spmv_ell_panel", _ptr(vals), _ptr(cols), _ptr(x),
             _ptr(pids), _ptr(y), row_blocks, row_block, k, steps, panel,
-            x.shape[0], _stream(x))
+            x.shape[0], 0 if plan.route == "bulk" else 1, plan.tile_rows,
+            plan.pack, plan.split, plan.blocks, plan.panels_bytes,
+            plan.vals_bytes, plan.part_bytes, plan.smem_bytes, _stream(x))
+    spmv_ell_panel_kernel.plan = plan
     spmv_ell_panel_kernel.launches += 1
+    return y
+
+
+spmv_ell_panel_kernel.plan = None  # the plan of the last launch
+
+
+def spmv_ell_panel_before(vals: torch.Tensor, cols: torch.Tensor,
+                          x: torch.Tensor, panel_ids: torch.Tensor,
+                          panel: int = 512) -> torch.Tensor:
+    """:func:`spmv_ell_panel_kernel` on the card by its first design (one
+    block per row block, two panels double-buffered), to time it beside the
+    current one.  Nothing on the port's paths calls it, and it counts no
+    launches."""
+    _check(x.is_cuda, "spmv_ell_panel_before: x must be a CUDA tensor")
+    vals, cols, x = _check_ell(vals, cols, x, "spmv_ell_panel_before")
+    pids = _int32(panel_ids, x.device)
+    r, k = vals.shape
+    row_blocks, steps = pids.shape
+    y = torch.empty(r, dtype=torch.float32, device=x.device)
+    _launch("repro_spmv_ell_panel_before", _ptr(vals), _ptr(cols), _ptr(x),
+            _ptr(pids), _ptr(y), row_blocks, r // row_blocks, k, steps,
+            panel, x.shape[0], _stream(x))
     return y
 
 

@@ -143,6 +143,22 @@ def test_indirect_scatter_bitwise_vs_jax(jx, impl, dtype, shape, count):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("dtype", sorted(CONVERTER_DTYPES))
+@pytest.mark.parametrize("n_rows,width,lo,hi", [(256, 4099, -249, 452),
+                                                (16, 3, -5, 40),
+                                                (8, 1027, 0, 8)])
+def test_indirect_gather_clips_odd_widths_vs_jax(jx, dtype, n_rows, width,
+                                                 lo, hi):
+    """Odd row widths, and indices below and past the rows, which the
+    reference's ``take(mode='clip')`` clips to the nearest row."""
+    rng = _rng("gather-clip", dtype, n_rows, width)
+    src = _rows(rng, (n_rows, width), CONVERTER_DTYPES[dtype])
+    idx = rng.integers(lo, hi, 37).astype(np.int32)
+    got = ops.indirect_gather(_t(src), _t(idx))
+    want = jx.ops.indirect_gather(jx.a(src), jx.a(idx), impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_indirect_scatter_drops_out_of_range_rows(jx):
     """An index past the rows drops its row, as the reference's scatter
     drops it; a negative index drops too in the port (the callers route
@@ -359,7 +375,8 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(CONVERTER_DTYPES))
 @pytest.mark.parametrize("shape,count", [((16, 128), 5), ((40, 3), 23),
-                                         ((256, 8192), 64)])
+                                         ((256, 8192), 64), ((256, 4099), 24),
+                                         ((64, 1), 60)])
 def test_converter_kernels_bitwise_on_card(cuda, dtype, shape, count):
     rng = _rng("card-conv", dtype, shape, count)
     src = _t(_rows(rng, shape, CONVERTER_DTYPES[dtype]), cuda)
@@ -434,3 +451,45 @@ def test_attention_kernels_never_read_unmapped_pages(cuda, quantized):
     out = ops.paged_prefill_attention(
         *[_t(a, cuda) for a in (qp, kp, vp, table, starts, counts)], **sc)
     assert torch.isfinite(out).all()
+
+
+def _offset_rows(rows: torch.Tensor, offset: int) -> torch.Tensor:
+    """``rows`` copied into a buffer at ``offset`` bytes from a 256-byte
+    boundary: a contiguous tensor whose base is that far off alignment."""
+    flat = rows.reshape(-1).view(torch.int8)
+    buf = torch.empty(flat.numel() + 256, dtype=torch.int8,
+                      device=rows.device)
+    view = buf[offset:offset + flat.numel()]
+    view.copy_(flat)
+    return view.view(rows.dtype).view(rows.shape)
+
+
+GATHER_ROUTE_CASES = {
+    # name: (dtype, n_rows, width, byte offset of src, copy unit)
+    "fp32 32 KB rows": (np.float32, 256, 8192, 0, 16),
+    "fp32 32 KB rows off 4 B": (np.float32, 256, 8192, 4, 4),
+    "int8 8 KB rows": (np.int8, 256, 8192, 0, 16),
+    "fp32 256 B scale rows": (np.float32, 256, 64, 0, 16),
+    "int8 4099 B rows off 3 B": (np.int8, 256, 4099, 3, 1),
+    "fp32 4108 B rows off 4 B": (np.float32, 256, 1027, 4, 4),
+    "int32 4 MB rows": (np.int32, 4, 1 << 20, 0, 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATHER_ROUTE_CASES))
+def test_indirect_gather_routes_bitwise_on_card(cuda, case):
+    """Each copy unit of the gather against the plain version, bitwise,
+    with indices below and past the rows (clipped); one launch per call."""
+    dtype, n_rows, width, offset, unit = GATHER_ROUTE_CASES[case]
+    rng = _rng("card-gather-route", case)
+    src = _offset_rows(_t(_rows(rng, (n_rows, width), dtype), cuda), offset)
+    idx = _t(rng.integers(-n_rows, 2 * n_rows, 24).astype(np.int32), cuda)
+    ops.reset_launch_counts()
+    got = ops.indirect_gather(src, idx)
+    torch.cuda.synchronize()
+    assert ops.indirect_gather.launches == 1
+    assert ops.indirect_gather.plan.unit == unit
+    assert torch.equal(got, ref.indirect_gather(src, idx))
+    before = ops.indirect_gather_before(src, idx)
+    assert torch.equal(before, got) and ops.indirect_gather.launches == 1

@@ -203,6 +203,8 @@ def _panel_dense(vals, cols, x, pids, panel):
     (2, 8, 8, 2, 2048, 512, 3),    # with entries outside their panel
     (3, 4, 12, 3, 256, 64, 2),
     (1, 5, 4, 1, 96, 32, 1),
+    (2, 12, 6, 2, 256, 64, 1),     # K / steps = 3
+    (3, 10, 4, 4, 128, 32, 1),     # K / steps = 1
 ])
 def test_spmv_ell_panel_vs_jax_interpret(jx, row_blocks, row_block, k, steps,
                                          c, panel, stray):
@@ -409,7 +411,10 @@ def test_spmv_kernel_raises_on_other_dtypes(cuda):
 @pytest.mark.parametrize("row_blocks,row_block,k,steps,c,panel,stray", [
     (2, 8, 8, 2, 2048, 512, 0), (2, 8, 8, 2, 2048, 512, 3),
     (3, 4, 12, 3, 256, 64, 2), (1, 5, 4, 1, 96, 6, 1),
-    (512, 64, 32, 4, 1 << 16, 512, 2), (8, 300, 6, 2, 16384, 8192, 1)])
+    (512, 64, 32, 4, 1 << 16, 512, 2), (8, 300, 6, 2, 16384, 8192, 1),
+    (4, 100, 3, 3, 4096, 512, 1), (16, 300, 9, 3, 8192, 1024, 2),
+    (2, 2000, 32, 4, 1 << 16, 512, 1), (64, 8, 8, 2, 4096, 256, 1),
+    (7, 3, 5, 5, 1000, 100, 1)])
 def test_spmv_panel_kernel_on_card(cuda, row_blocks, row_block, k, steps, c,
                                    panel, stray):
     vals, cols, x, pids = _panel_case(
@@ -427,6 +432,51 @@ def test_spmv_panel_kernel_on_card(cuda, row_blocks, row_block, k, steps, c,
     torch.testing.assert_close(
         ops.spmv_ell_panel_kernel(*args, panel=panel),
         ops.spmv_ell_panel_kernel(*args, panel=panel, impl="ref"), **TOL)
+
+
+def _offset(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` starting ``elems`` elements past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = buf[elems:elems + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+PANEL_ROUTE_CASES = {
+    # name: (operand offset in elements, route)
+    "aligned": ({}, "bulk"),
+    "x off 4 B": ({"x": 1}, "cp.async"),
+    "vals off 8 B": ({"vals": 2}, "cp.async"),
+    "cols off 12 B": ({"cols": 3}, "cp.async"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PANEL_ROUTE_CASES))
+def test_spmv_panel_routes_on_card(cuda, case):
+    """Each route of the panel kernel against the plain version, strays
+    masked; one launch per call."""
+    offsets, route = PANEL_ROUTE_CASES[case]
+    vals, cols, x, pids = _panel_case(_rng("card-panel-route", case), 64,
+                                      64, 32, 4, 1 << 16, 512, 2)
+    args = dict(vals=_torch(vals).to(cuda), cols=_torch(cols).to(cuda),
+                x=_torch(x).to(cuda))
+    args = {k: _offset(v, offsets.get(k, 0)) for k, v in args.items()}
+    pids = _torch(pids).to(cuda)
+    ops.reset_launch_counts()
+    got = ops.spmv_ell_panel_kernel(args["vals"], args["cols"], args["x"],
+                                    pids, panel=512)
+    torch.cuda.synchronize()
+    assert ops.spmv_ell_panel_kernel.launches == 1
+    assert ops.spmv_ell_panel_kernel.plan.route == route
+    want = ref.spmv_ell_panel(args["vals"], args["cols"], args["x"], pids,
+                              panel=512)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(
+        ops.spmv_ell_panel_before(args["vals"], args["cols"], args["x"],
+                                  pids, panel=512), want, **TOL)
+    assert ops.spmv_ell_panel_kernel.launches == 1
 
 
 @pytest.mark.cuda

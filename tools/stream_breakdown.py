@@ -1,0 +1,142 @@
+"""The indirect gather and the panel SpMV on the card: routes, slab sizes
+and the library calls, timed in turns.
+
+At ``chip_smoke.py``'s shapes (the gather: 24 rows from 256 of 32 KB (fp32
+pages), 8 KB (int8 codes) and 256 B (int8 scales), the prefill window
+reads; the panel SpMV: 2**20 rows, K = 32 in 4 steps, panel 512, row
+blocks of 64, C = 2**22) it times, with CUDA events and with the
+profiler's device time (``chip_smoke.time_ms`` / ``profile_ms``):
+
+* the gather by its own plan, then by plans built here (``plans.GatherPlan``
+  launched through ``ops._gather_launch``): 16-byte units with blocks of
+  64 to 1024 threads (slabs of 1-16 KB), and 4-byte units with 256; its
+  first design, ``index_select`` and the launch floor (one 16-byte row);
+* the panel SpMV on the bulk route and on the cp.async route (x 4 bytes
+  off alignment), its first design and the cuSPARSE CSR matvec;
+* each default kernel and its library call in turns (kernel, library,
+  library, kernel; three rounds), which is how two µs-scale calls compare.
+
+Every result is checked against the plain version first.  A quicker look
+than the whole ``chip_smoke.py``.  Needs a GPU; run from the root of a
+checkout::
+
+    PYTHONPATH=src:. python tools/stream_breakdown.py
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+from dataclasses import replace
+
+import torch
+
+import chip_smoke as cs
+from repro_torch.kernels import ops, plans, ref
+
+THREADS = (64, 128, 256, 512, 1024)
+
+
+def both(fn):
+    return dict(ms=cs.time_ms(fn), device_ms=cs.profile_ms(fn))
+
+
+def in_turns(kernel, library, rounds: int = 3):
+    """(kernel, library, library, kernel) event and device times."""
+    out = dict(kernel=[], library=[])
+    for _ in range(rounds):
+        for name, fn in (("kernel", kernel), ("library", library),
+                         ("library", library), ("kernel", kernel)):
+            out[name].append(both(fn))
+    return out
+
+
+def gather_shape(src, idx):
+    """Every plan of interest for the rows of ``src`` gathered by ``idx``."""
+    want = ops.indirect_gather(src, idx, impl="ref")
+    row = want[0].numel() * want.element_size()
+
+    def forced(plan):
+        out = torch.empty_like(want)
+        ops._gather_launch(src, idx, out, plan)
+        return out
+
+    kernel = lambda: ops.indirect_gather(src, idx)
+    idx64 = idx.long()
+    library = lambda: torch.index_select(src, 0, idx64)
+    cs.require(torch.equal(kernel(), want), "gather: not bitwise")
+    default = ops.indirect_gather.plan
+    res = {"default plan": dict(both(kernel), route=default.route,
+                                threads=default.threads,
+                                slab_bytes=default.slab_bytes)}
+    for unit, threads in [(16, t) for t in THREADS] + [(4, 256)]:
+        slabs = -(-row // (unit * threads))
+        if threads > 32 * -(-row // unit // 32):
+            continue  # more threads than the row has units
+        plan = replace(default, unit=unit, threads=threads, slabs=slabs,
+                       grid_y=slabs)
+        name = f"{unit}-byte units, {threads} threads"
+        cs.require(torch.equal(forced(plan), want),
+                   f"gather {name}: not bitwise")
+        res[name] = both(lambda: forced(plan))
+    before = lambda: ops.indirect_gather_before(src, idx)
+    cs.require(torch.equal(before(), want), "gather first design: not bitwise")
+    res["first design"] = both(before)
+    res["index_select"] = both(library)
+    res["in turns with index_select"] = in_turns(kernel, library)
+    return res
+
+
+def gather_times(dev, gen):
+    idx = torch.randperm(256, generator=gen, device=dev)[:24].to(torch.int32)
+    pages = torch.randn((256, 8192), generator=gen, device=dev)
+    codes = torch.randint(-128, 128, (256, 8192), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    res = {"fp32 32 KB rows": gather_shape(pages, idx),
+           "int8 8 KB rows": gather_shape(codes, idx),
+           "fp32 256 B rows": gather_shape(pages[:, :64].contiguous(), idx)}
+    one_src = torch.zeros((1, 4), device=dev)
+    one_idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    res["launch floor (one 16 B row)"] = both(
+        lambda: ops.indirect_gather(one_src, one_idx))
+    return res
+
+
+def panel_times(dev, gen):
+    x = torch.rand(cs.SPMV_R, generator=gen, device=dev) * 2 - 1
+    x_off = cs.offset_copy(x, 4)
+    vals, cols, pids, stray = cs.panel_matrix(
+        dev, gen, cs.PANEL_R // cs.PANEL_ROWS, cs.PANEL_ROWS, cs.SPMV_K,
+        cs.PANEL_STEPS, cs.SPMV_R, cs.PANEL)
+    want = ref.spmv_ell_panel(vals, cols, x, pids, panel=cs.PANEL)
+    csr = cs.csr_of(vals, cols, ~stray, x.numel())
+    run = {xname: (lambda xv=xv: ops.spmv_ell_panel_kernel(
+        vals, cols, xv, pids, panel=cs.PANEL))
+        for xname, xv in (("x aligned", x), ("x at +4 B", x_off))}
+    run["first design"] = lambda: ops.spmv_ell_panel_before(
+        vals, cols, x, pids, panel=cs.PANEL)
+    run["cuSPARSE CSR matvec"] = lambda: torch.mv(csr, x)
+    res = {}
+    for name, fn in run.items():
+        cs.require(torch.allclose(fn(), want, **cs.TOL),
+                   f"panel {name}: over {cs.TOL}")
+        res[name] = both(fn)
+        if name.startswith("x "):
+            res[name]["route"] = ops.spmv_ell_panel_kernel.plan.route
+    res["in turns with cuSPARSE"] = in_turns(run["x aligned"],
+                                             run["cuSPARSE CSR matvec"])
+    return res
+
+
+def main() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    print(json.dumps({"card": smi, "gather": gather_times(dev, gen),
+                      "panel": panel_times(dev, gen)}))
+
+
+if __name__ == "__main__":
+    main()
