@@ -21,7 +21,12 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    and past the rows (clipped), each case printing its route.  Data movement must match
    bitwise, attention within rtol = atol = 1e-5 (float32 sums in another
    order).  A poison check puts NaN in every unmapped page: the attention
-   outputs must stay finite.  Kernel, plain version and, where one PyTorch
+   outputs must stay finite.  The three split-KV attention kernels must
+   also be bitwise equal across two calls, and each row computed alone
+   (one row, its table cut to the pages it needs) bitwise equal to the
+   same row of the batch of 8; each logs its plan, and their rows of the
+   JSON line carry it as ``kernel_route`` beside the profiler's
+   ``device_ms``.  Kernel, plain version and, where one PyTorch
    call computes the same function, that call are timed with CUDA events
    (median of 25); the gather, its first design, ``index_select`` and the
    launch floor (a one-row gather of 16 bytes) also by the profiler's
@@ -56,6 +61,8 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    pools, then int8 pools in a pool tight enough to force evictions.  The
    token streams must equal ``static_batch_generate`` on the plain path
    (``impl='ref'``), and every kernel of the path must have launched.
+   On a flip, the top two logits at that token on both paths (a chunked
+   prefill of the prompt and the plain tokens before it) are logged.
    Then an isolated prefill and decode run gives tokens/s and launches per
    step.
 5. Speculative serving: the same model, prompts and pools with
@@ -98,7 +105,9 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
-of the gather and the panel SpMV add ``kernel_route``, ``ms_before`` (the
+of the paged attention kernels add ``kernel_route`` (the plan's route) and
+``device_ms``; those of the gather and the panel SpMV add
+``kernel_route``, ``ms_before`` (the
 first design), ``device_ms`` / ``device_ms_before`` / ``library_device_ms``
 (profiler), and for the gather ``slab_bytes``, ``launch_floor_ms`` /
 ``launch_floor_device_ms``, the routes checked and under ``shapes`` the
@@ -398,6 +407,28 @@ def poison(kp, vp, ks, vs, table, live_tokens):
     return kp, vp, ks, vs
 
 
+def check_split(name, fn, args, kwargs, got, widths):
+    """The bits of a split-KV attention call (``fn`` on ``args``, whose
+    result was ``got``): equal across two calls, and each row computed
+    alone (R = 1, its table cut to ``widths[i]`` pages) equal to the same
+    row of the batch.  Returns the plan's route and logs the plan."""
+    again = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    require(torch.equal(again, got), f"{name}: not bitwise across calls")
+    plan = fn.plan
+    for i, width in enumerate(widths):
+        q, table = args[0], args[3]
+        alone = fn(q[i:i + 1], args[1], args[2],
+                   table[i:i + 1, :max(1, width)].contiguous(),
+                   *[a[i:i + 1] for a in args[4:]], **kwargs)
+        torch.cuda.synchronize()
+        require(torch.equal(alone[0], got[i]),
+                f"{name}: row {i} alone differs from the row in the batch")
+    log(f"{name}: bitwise across calls and alone vs batch of "
+        f"{len(widths)}; plan {plan}")
+    return plan.route
+
+
 def check_kernels(ops, dev, lens, bw, flops):
     """Correctness, poison and timing of the four kernels; returns the
     per-kernel records (without launches) keyed by wrapper name."""
@@ -427,6 +458,9 @@ def check_kernels(ops, dev, lens, bw, flops):
                                          **sc(pk[2], pk[3]))
         require(bool(torch.isfinite(out).all()),
                 f"paged_decode {tag}: NaN from an unmapped page")
+        route = check_split(f"paged_decode {tag}", ops.paged_decode_attention,
+                            args, sc(ks, vs), got,
+                            [-(-n // PAGE) for n in lens])
         live = int(sum(lens))
         nbytes = (live * kvh * (2 * d * elem + (8 if quantized else 0))
                   + 2 * q.numel() * 4
@@ -434,7 +468,8 @@ def check_kernels(ops, dev, lens, bw, flops):
         nops = 4 * h * d * live
         records[("paged_decode_attention", tag)] = dict(
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
-            library_ms=None, bytes=nbytes, ops=nops)
+            library_ms=None, bytes=nbytes, ops=nops, kernel_route=route,
+            device_ms=profile_ms(run))
 
         # -- prefill: 8 rows of a 32-token chunk, ragged, one padding row.
         starts = [0, 32, 64, 96, 128, 160, 256, 288]
@@ -463,6 +498,9 @@ def check_kernels(ops, dev, lens, bw, flops):
                                           **sc(pk[2], pk[3]))
         require(bool(torch.isfinite(out).all()),
                 f"paged_prefill {tag}: NaN from an unmapped page")
+        route = check_split(f"paged_prefill {tag}",
+                            ops.paged_prefill_attention, args, sc(ks, vs),
+                            got, [-(-lv // PAGE) for lv in live_r])
         seen = sum(min(s + c + 1, lv) for s, lv in zip(starts, live_r)
                    if lv for c in range(CHUNK))
         nbytes = (sum(live_r) * kvh * (2 * d * elem + (8 if quantized else 0))
@@ -471,7 +509,8 @@ def check_kernels(ops, dev, lens, bw, flops):
         nops = 4 * h * d * seen
         records[("paged_prefill_attention", tag)] = dict(
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
-            library_ms=None, bytes=nbytes, ops=nops)
+            library_ms=None, bytes=nbytes, ops=nops, kernel_route=route,
+            device_ms=profile_ms(run))
 
         # -- verify: K queries per sequence at the serving lengths, one row
         #    clamped to 2 scored tokens and one padding row.
@@ -498,6 +537,8 @@ def check_kernels(ops, dev, lens, bw, flops):
                                **sc(pk[2], pk[3]))
         require(bool(torch.isfinite(out).all()),
                 f"paged_verify {tag}: NaN from an unmapped page")
+        route = check_split(f"paged_verify {tag}", ops.paged_verify, args,
+                            sc(ks, vs), got, [-(-lv // PAGE) for lv in vlive])
         seen = sum(n + i + 1 for n, c in zip(lens, vcounts)
                    for i in range(c))
         nbytes = (sum(vlive) * kvh * (2 * d * elem + (8 if quantized else 0))
@@ -505,7 +546,8 @@ def check_kernels(ops, dev, lens, bw, flops):
                   + sum(-(-lv // PAGE) for lv in vlive) * 4 + 2 * BATCH * 4)
         records[("paged_verify", tag)] = dict(
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
-            library_ms=None, bytes=nbytes, ops=4 * h * d * seen)
+            library_ms=None, bytes=nbytes, ops=4 * h * d * seen,
+            kernel_route=route, device_ms=profile_ms(run))
 
         # -- gather: the prefill window read, 3 pages for each of 8 rows
         #    (int8: the codes, then the scale rows).
@@ -1081,6 +1123,42 @@ def first_divergence(out, static):
                         f"{a[i] if i < len(a) else None} vs plain "
                         f"{b[i] if i < len(b) else None}")
     return None
+
+
+def flip_gap(serve_mod, cfg, dev, params, kv_dtype, prompts, out, static):
+    """At the first token where ``out`` leaves ``static``: the top two
+    logits of that position on the kernels and on the plain path, from a
+    chunked prefill of the prompt and the plain tokens before it (one
+    row).  A flip within every call's tolerance shows as a gap near 0."""
+    from repro_torch.serve.scheduler import build_prefill_rows
+
+    for rid in sorted(static):
+        a, b = out.get(rid, []), static[rid]
+        flips = [i for i in range(min(len(a), len(b))) if a[i] != b[i]]
+        if flips:
+            break
+    else:
+        return None
+    i = flips[0]
+    seq = np.concatenate([prompts[rid], np.asarray(b[:i], np.int32)])
+    res = dict(request=rid, token=i)
+    for impl in ("cuda", "ref"):
+        model = serve_mod.PagedLM(cfg, impl=impl, kv_dtype=kv_dtype,
+                                  device=dev, params=params)
+        cache = serve_mod.PagedKVCache.create(
+            cfg, batch=1, max_len=MAX_LEN, page=PAGE, kv_dtype=kv_dtype,
+            device=dev)
+        cache = cache.allocate(0, cache.pages_for(len(seq)))
+        for start in range(0, len(seq), CHUNK):
+            toks, counts, slots, starts = build_prefill_rows(
+                [(seq, start, 0)], CHUNK, 1)
+            logits, cache = model.prefill_batch(toks, counts, slots, starts,
+                                                cache)
+        top = torch.topk(logits[0].float(), 2)
+        res[impl] = dict(top2=top.indices.tolist(),
+                         logits=top.values.tolist(),
+                         gap=float(top.values[0] - top.values[1]))
+    return res
 
 
 def throughput(serve_mod, cfg, dev, params, prompts):
@@ -1740,6 +1818,11 @@ def main() -> int:
             f"{st.prefill_steps} prefill steps, {st.decode_steps} decode "
             f"steps; launches {counts}; streams equal to plain path: "
             f"{div is None}")
+        if div is not None:
+            gap = flip_gap(serve_mod, cfg, dev, params, kv_dtype, prompts,
+                           out, static)
+            log(f"serve {kv_dtype}: top-2 logit gap at the flip: "
+                + json.dumps(gap))
         require(div is None, f"serve {kv_dtype}: first divergence at {div}")
         require(sorted(out) == list(range(N_REQUESTS))
                 and all(len(t) == MAX_NEW for t in out.values()),
@@ -1770,6 +1853,10 @@ def main() -> int:
             f"{st.acceptance_rate:.4f} ({st.n_accepted}/{st.n_drafted} "
             f"drafts), {st.n_evictions} evictions; launches {counts}; "
             f"streams equal to plain greedy: {div is None}")
+        if div is not None:
+            log(f"serve spec {kv_dtype}: top-2 logit gap at the flip: "
+                + json.dumps(flip_gap(serve_mod, cfg, dev, params, kv_dtype,
+                                      prompts, out, statics[kv_dtype])))
         require(div is None,
                 f"serve spec {kv_dtype}: first divergence at {div}")
         require(sorted(out) == list(range(N_REQUESTS))

@@ -39,10 +39,14 @@ attribute, ``launches``, raised by one only where the kernel is launched
 (:func:`launch_counts`, :func:`reset_launch_counts`).  ``paged_verify``
 counts under its own name, not the prefill kernel's.
 
-``indirect_gather`` and ``spmv_ell_panel_kernel`` launch by a plan chosen
-on the host (:mod:`.plans`) from the shapes and the pointers' alignment
-(the gather's copy unit, the panel SpMV's route and tiling); each keeps
-its last plan as ``.plan``.  ``indirect_gather_before`` and
+``indirect_gather``, ``spmv_ell_panel_kernel`` and the three paged
+attention wrappers launch by a plan chosen on the host (:mod:`.plans`)
+from the shapes and the pointers' alignment (the gather's copy unit, the
+panel SpMV's route and tiling, the attention kernels' spans, tiles and
+shared memory); each keeps its last plan as ``.plan``.  The attention
+wrappers also allocate the plan's scratch for the span partials; their
+C entries launch the span blocks and then the combine, one count a call.
+``indirect_gather_before`` and
 ``spmv_ell_panel_before`` launch the two kernels' first designs, only to
 time them beside the current ones on the card; nothing on a path calls
 them and they count nothing.
@@ -58,7 +62,7 @@ import torch
 
 from . import ref
 from .build import library
-from .plans import gather_plan, panel_plan
+from .plans import attention_plan, gather_plan, panel_plan
 
 __all__ = [
     "KERNELS",
@@ -122,9 +126,12 @@ _SIGNATURES = {  # C entry: (library, argument types)
     "repro_indirect_scatter": ("stream_converters", _CONVERTER_ARGS),
     "repro_strided_gather": ("stream_converters", _STRIDED_ARGS),
     "repro_strided_scatter": ("stream_converters", _STRIDED_ARGS),
-    "repro_paged_decode": ("paged_decode", [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+    # ... out, scratch, shape ints, scale, quantized, then the plan (an
+    # int array in the order of plans.ATTENTION_FIELDS) and the stream.
+    "repro_paged_decode": ("paged_decode",
+                           [_P] * 9 + [_I] * 6 + [_F, _I, _P, _P]),
     "repro_paged_prefill": ("paged_prefill",
-                            [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+                            [_P] * 10 + [_I] * 7 + [_F, _I, _P, _P]),
     "repro_tiled_transpose": ("transpose", [_P] * 2 + [_L] * 2 + [_I, _P]),
     "repro_spmv_ell": ("spmv", [_P] * 4 + [_L] + [_I] * 2 + [_P]),
     # ... row_blocks, row_block, k, steps, panel, c, then the plan: route,
@@ -386,6 +393,28 @@ def _check_pools(k_pages, v_pages, k_scale, v_scale, device) -> bool:
     return quantized
 
 
+def _attention_plan(kind, rows, chunk, h, kvh, d, page, table_pages,
+                    quantized, *tensors):
+    """:func:`.plans.attention_plan` for a launch over ``tensors`` (q and
+    the pools), whose base addresses bound the copy unit."""
+    align = 0
+    for t in tensors:
+        align |= t.data_ptr()
+    align = 16 if align % 16 == 0 else (4 if align % 4 == 0 else 1)
+    return attention_plan(kind, rows, chunk, h, kvh, d, page, table_pages,
+                          quantized, align)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_array(plan) -> ctypes.Array:
+    fields = plan.launch_fields()
+    return (ctypes.c_int * len(fields))(*fields)
+
+
+def _softmax_scale(scale: Optional[float], d: int) -> float:
+    return scale if scale is not None else 1.0 / math.sqrt(d)
+
+
 @_counted
 def paged_decode_attention(
     q: torch.Tensor,
@@ -425,13 +454,21 @@ def paged_decode_attention(
     _check(table.dim() == 2 and table.shape[0] == b and lens.shape == (b,),
            "page_table must be (B, n_pages) and lengths (B,)")
     out = torch.empty_like(q)
-    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    plan = _attention_plan("decode", b, 1, h, kvh, d, page, table.shape[1],
+                           quantized, q, k_pages, v_pages)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=q.device)
     _launch("repro_paged_decode", _ptr(q), _ptr(k_pages), _ptr(v_pages),
             _ptr(k_scale), _ptr(v_scale), _ptr(table), _ptr(lens), _ptr(out),
-            b, h, kvh, d, page, table.shape[1], sc, int(quantized),
-            _stream(q))
+            _ptr(scratch), b, h, kvh, d, page, table.shape[1],
+            _softmax_scale(scale, d), int(quantized),
+            _plan_array(plan), _stream(q))
+    paged_decode_attention.plan = plan
     paged_decode_attention.launches += 1
     return out
+
+
+paged_decode_attention.plan = None  # the plan of the last launch
 
 
 @_counted
@@ -461,16 +498,21 @@ def paged_prefill_attention(
         return ref.paged_prefill_attention(
             q, k_pages, v_pages, ctx_rows, starts, counts, scale=scale
         )
-    out = _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts,
-                          k_scale, v_scale, scale)
+    out, paged_prefill_attention.plan = _prefill_kernel(
+        q, k_pages, v_pages, ctx_rows, starts, counts, k_scale, v_scale,
+        scale)
     paged_prefill_attention.launches += 1
     return out
 
 
+paged_prefill_attention.plan = None  # the plan of the last launch
+
+
 def _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts, k_scale,
-                    v_scale, scale) -> torch.Tensor:
-    """Check the arguments and launch ``paged_prefill.cu``; the caller
-    counts the launch under its own name."""
+                    v_scale, scale):
+    """Check the arguments and launch ``paged_prefill.cu``; returns the
+    output and the plan.  The caller counts the launch under its own name
+    and keeps the plan."""
     _check(q.dtype == torch.float32 and q.dim() == 4,
            f"q must be (R, C, H, D) float32, got {tuple(q.shape)} {q.dtype}")
     q = q.contiguous()
@@ -486,12 +528,16 @@ def _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts, k_scale,
            and ct.shape == (r,),
            "ctx_rows must be (R, ctx_pages) and starts/counts (R,)")
     out = torch.empty_like(q)
-    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    plan = _attention_plan("prefill", r, c, h, kvh, d, page, rows.shape[1],
+                           quantized, q, k_pages, v_pages)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                          device=q.device)
     _launch("repro_paged_prefill", _ptr(q), _ptr(k_pages), _ptr(v_pages),
             _ptr(k_scale), _ptr(v_scale), _ptr(rows), _ptr(st), _ptr(ct),
-            _ptr(out), r, c, h, kvh, d, page, rows.shape[1], sc,
-            int(quantized), _stream(q))
-    return out
+            _ptr(out), _ptr(scratch), r, c, h, kvh, d, page, rows.shape[1],
+            _softmax_scale(scale, d), int(quantized), _plan_array(plan),
+            _stream(q))
+    return out, plan
 
 
 @_counted
@@ -524,10 +570,14 @@ def paged_verify(
         return ref.paged_verify_attention(
             q, k_pages, v_pages, ctx_rows, lengths, counts, scale=scale
         )
-    out = _prefill_kernel(q, k_pages, v_pages, ctx_rows, lengths, counts,
-                          k_scale, v_scale, scale)
+    out, paged_verify.plan = _prefill_kernel(
+        q, k_pages, v_pages, ctx_rows, lengths, counts, k_scale, v_scale,
+        scale)
     paged_verify.launches += 1
     return out
+
+
+paged_verify.plan = None  # the plan of the last launch
 
 
 def speculative_accept(drafts: torch.Tensor, greedy: torch.Tensor,

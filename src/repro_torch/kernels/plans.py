@@ -1,4 +1,5 @@
-"""Launch plans of the indirect gather and the panel SpMV, chosen on the host.
+"""Launch plans of the gather, the panel SpMV and the paged attention
+kernels, chosen on the host.
 
 Plain Python, no torch: :mod:`.ops` computes a plan from the call's shapes
 and pointer alignment and passes its fields to the C entry, which launches
@@ -29,14 +30,29 @@ Routes:
   and ``row_block * K % 4 == 0`` (tiles of whole 16 bytes).
 * ``cp.async``: every thread issues ``cp.async`` copies of 16 bytes where a
   region allows it and 4 bytes elsewhere.  Taken for every other call.
+
+**Paged attention** (``paged_decode.cu``, ``paged_prefill.cu``, both over
+``paged_split.cuh``).  Each row's context is cut into spans of ``span``
+positions, a constant of the kernel (``DECODE_SPAN``, ``PREFILL_SPAN``)
+rounded up to whole pages and whole kv tiles.  Block ``(s, tile * KVH +
+g, r)`` walks span ``s`` of row ``r`` for kv head ``g`` and one tile of
+query rows (``tq`` positions times the group's ``rep`` heads), in kv tiles
+of ``kv_tile = head_dim / 4`` positions double-buffered with ``cp.async``,
+and writes each query row's partial max, sum and accumulator.  A combine
+launch then adds, for each query, the spans it sees, in span order.  So a
+query's bits depend on its own q, pages, start and count and on the span,
+never on the batch, the table's width or the tile it rides in.  Blocks
+whose span starts at or past the last position their tile sees exit
+before loading anything.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
-__all__ = ["GatherPlan", "PanelPlan", "SMEM_PER_BLOCK", "gather_plan",
-           "panel_plan"]
+__all__ = ["ATTENTION_FIELDS", "AttentionPlan", "GatherPlan", "PanelPlan",
+           "SMEM_PER_BLOCK", "attention_plan", "gather_plan", "panel_plan"]
 
 #: Dynamic shared memory one block may use on Hopper (H100, H200).
 SMEM_PER_BLOCK = 232448
@@ -45,6 +61,12 @@ GATHER_THREADS = 256      # a block's threads: a 4 KB slab of 16-byte units
 GATHER_MAX_UNITS = 1 << 30  # the kernel indexes a row's units in 32 bits
 PANEL_ROUTES = ("bulk", "cp.async")
 PANEL_TILE_BYTES = 16384  # vals + cols bytes a tile aims at
+DECODE_SPAN = 32          # context positions a decode block walks
+PREFILL_SPAN = 64         # ... a prefill / verify block
+ATTN_TILE_FLOATS = 8192   # a query tile's rows x head_dim, at most
+ATTN_HEAD_DIMS = (16, 32, 64, 128)
+ATTN_MAX_THREADS = 256    # the kernels' __launch_bounds__
+COMBINE_THREADS = 256
 
 
 def _unit(*values: int) -> int:
@@ -172,3 +194,170 @@ def panel_plan(row_blocks: int, row_block: int, k: int, steps: int,
                 f"spmv_ell_panel_kernel: {steps} panels of {panel} and "
                 f"{tile} rows of K = {k} need {plan.smem_bytes} bytes of "
                 f"shared memory, more than a block's {SMEM_PER_BLOCK}")
+
+
+#: The plan fields the attention kernels' C entries take, in this order,
+#: as one int array (``struct Plan`` of ``paged_split.cuh``).
+ATTENTION_FIELDS = ("span", "spans", "kv_tile", "tq", "tile_rows",
+                    "q_tiles", "threads", "unit", "k_off", "v_off",
+                    "raw_off", "pt_off", "alpha_off", "k_stage", "v_stage",
+                    "raw_stage", "smem_bytes", "combine_blocks")
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    kind: str         # "decode" or "prefill" (verify is a prefill launch)
+    rows: int         # R (B for decode)
+    chunk: int        # C query positions a row (1 for decode)
+    heads: int
+    kv_heads: int
+    head_dim: int
+    page: int
+    table_pages: int  # page-table entries a row (the walk never passes them)
+    span: int         # context positions a block walks: whole pages, tiles
+    spans: int        # spans a row: the table's positions over span
+    kv_tile: int      # positions a pipeline stage holds (head_dim / 4)
+    tq: int           # query positions a tile
+    tile_rows: int    # query rows a block (tq * rep, rounded up)
+    q_tiles: int
+    threads: int
+    unit: int         # cp.async bytes of the q and K/V rows: 16 or 4
+    k_off: int        # shared memory regions, bytes from the base (q at 0)
+    v_off: int
+    raw_off: int      # int8 codes and scales as loaded (0 bytes for fp32)
+    pt_off: int       # probabilities, kv_tile x (tile_rows + 4)
+    alpha_off: int    # a tile's rescale factor per query row
+    k_stage: int      # bytes between the two stages of a region
+    v_stage: int
+    raw_stage: int
+    smem_bytes: int
+    combine_blocks: int
+
+    @property
+    def rep(self) -> int:
+        return self.heads // self.kv_heads
+
+    @property
+    def grid(self):
+        """``(spans, q_tiles * kv_heads, rows)``."""
+        return (self.spans, self.q_tiles * self.kv_heads, self.rows)
+
+    @property
+    def queries(self) -> int:
+        return self.rows * self.chunk * self.heads
+
+    @property
+    def scratch_floats(self) -> int:
+        """Partials: an accumulator of head_dim floats, then max and sum,
+        for every (query, span)."""
+        return self.queries * self.spans * (self.head_dim + 2)
+
+    @property
+    def route(self) -> str:
+        return (f"split-KV: spans of {self.span} positions "
+                f"({self.span // self.page} pages), tiles of "
+                f"{self.tile_rows} query rows in {self.threads} threads, "
+                f"kv tiles of {self.kv_tile} in 2 cp.async stages of "
+                f"{self.unit}-byte copies, then a combine in span order")
+
+    def launch_fields(self):
+        return tuple(getattr(self, f) for f in ATTENTION_FIELDS)
+
+    def row_bounds(self, start: int, count: int):
+        """``(start, live)`` as the kernels read a row: decode passes its
+        length as ``start`` and ``count=None``."""
+        if count is None:
+            n = min(max(start, 0), self.table_pages * self.page)
+            return n - 1, n
+        return start, (start + count if count > 0 else 0)
+
+    def visible_end(self, start: int, count: int, c: int) -> int:
+        """Query ``c`` of a row sees positions ``[0, visible_end)``."""
+        st, live = self.row_bounds(start, count)
+        return max(0, min(st + c + 1, live, self.table_pages * self.page))
+
+    def query_spans(self, start: int, count: int, c: int) -> int:
+        """Spans the combine adds for query ``c`` of a row, in order."""
+        return -(-self.visible_end(start, count, c) // self.span)
+
+    def block_positions(self, s: int, tile: int, start: int, count: int):
+        """Context positions ``[lo, hi)`` that block (span ``s``, ``tile``)
+        of a row loads; empty where the span is masked for the whole
+        tile, and then the block loads no page."""
+        st, live = self.row_bounds(start, count)
+        c0 = tile * self.tq
+        nq = min(self.tq, self.chunk - c0)
+        hi = min(st + c0 + nq, live, self.table_pages * self.page)
+        lo = s * self.span
+        return lo, max(lo, min(lo + self.span, hi))
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(kind: str, rows: int, chunk: int, heads: int,
+                   kv_heads: int, head_dim: int, page: int,
+                   table_pages: int, quantized: bool,
+                   align: int) -> AttentionPlan:
+    """The plan of one paged attention launch.  ``kind`` names the span
+    constant ("decode" or "prefill"); ``align`` is an integer that the q,
+    K and V base pointers are all multiples of (their bitwise or).  The
+    span, the kv tile and so every row's split depend only on ``kind``,
+    ``head_dim`` and ``page``: never on the rows, the table's width or
+    the other rows' lengths.  Shapes no plan serves raise ``ValueError``.
+    Plans are cached: pass ``align`` reduced to 16, 4 or 1 (as
+    :mod:`.ops` does) so that calls of one shape share theirs."""
+    if kind not in ("decode", "prefill"):
+        raise ValueError(f"attention_plan: unknown kind {kind!r}")
+    d = head_dim
+    rep = heads // max(kv_heads, 1)
+    if (min(rows, chunk, heads, kv_heads, page, table_pages) <= 0
+            or heads % kv_heads or d not in ATTN_HEAD_DIMS):
+        raise ValueError(
+            f"paged attention: no plan for {rows} rows of {chunk} queries, "
+            f"{heads} heads over {kv_heads} kv heads of {d} (head_dim must "
+            f"be one of {ATTN_HEAD_DIMS}), page {page}, {table_pages} "
+            f"table pages")
+    kv_tile = d // 4
+    unit = _unit(align, d * (1 if quantized else 4))
+    if unit == 1:
+        raise ValueError(f"paged attention: rows of {d} int8 codes at an "
+                         f"odd address have no cp.async unit")
+    target = DECODE_SPAN if kind == "decode" else PREFILL_SPAN
+    base = _lcm(page, kv_tile)
+    span = base * max(1, target // base)
+    spans = -(-table_pages * page // span)
+    tq = min(chunk, max(1, (ATTN_TILE_FLOATS // d) // rep))
+    step = 1024 // d           # rows that make a whole warp of threads
+    tile_rows = -(-tq * rep // step) * step
+    threads = tile_rows * d // 32
+    if threads > ATTN_MAX_THREADS:
+        raise ValueError(f"paged attention: {rep} query heads a kv head of "
+                         f"{d} need {threads} threads, more than "
+                         f"{ATTN_MAX_THREADS}")
+    q_bytes = tile_rows * d * 4
+    stages = 1 if quantized else 2      # int8 dequantizes into one buffer
+    k_stage = kv_tile * (d + 4) * 4
+    v_stage = kv_tile * d * 4
+    raw_stage = _align16(2 * kv_tile * d + 8 * kv_tile) if quantized else 0
+    k_off = q_bytes
+    v_off = k_off + stages * k_stage
+    raw_off = v_off + stages * v_stage
+    pt_off = raw_off + 2 * raw_stage
+    alpha_off = pt_off + kv_tile * (tile_rows + 4) * 4
+    smem = alpha_off + _align16(tile_rows * 4)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"paged attention: {smem} bytes of shared memory, "
+                         f"more than a block's {SMEM_PER_BLOCK}")
+    queries = rows * chunk * heads
+    return AttentionPlan(
+        kind=kind, rows=rows, chunk=chunk, heads=heads, kv_heads=kv_heads,
+        head_dim=d, page=page, table_pages=table_pages, span=span,
+        spans=spans, kv_tile=kv_tile, tq=tq, tile_rows=tile_rows,
+        q_tiles=-(-chunk // tq), threads=threads, unit=unit, k_off=k_off,
+        v_off=v_off, raw_off=raw_off, pt_off=pt_off, alpha_off=alpha_off,
+        k_stage=k_stage, v_stage=v_stage, raw_stage=raw_stage,
+        smem_bytes=smem,
+        combine_blocks=-(-queries * (d // 4) // COMBINE_THREADS))
