@@ -9,7 +9,7 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
 
 1. Setup: the card's name and power limit; the six CUDA sources of
    ``src/repro_torch/kernels/csrc`` built with ``nvcc`` in parallel.
-2. Kernels: each of the seven serving kernels against its plain PyTorch
+2. Kernels: each of the eight serving kernels against its plain PyTorch
    version on the card.  The paged ones at the yi-6b serving shapes (H=32, KVH=4,
    D=128, page 16, batch 8; verify with K=4 queries per sequence), fp32
    and int8 pools; the strided converters at the rwkv6-3b and Mamba
@@ -18,18 +18,23 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    (16 bytes: fp32 32 KB pages, int8 8 KB pages and their 256 B scale
    rows, 256 B fp32 rows; 4 bytes: 32 KB and 4108 B fp32 rows 4 bytes off
    alignment; 1 byte: 4099 B int8 rows 3 bytes off), with indices below
-   and past the rows (clipped), each case printing its route.  Data movement must match
-   bitwise, attention within rtol = atol = 1e-5 (float32 sums in another
-   order).  A poison check puts NaN in every unmapped page: the attention
-   outputs must stay finite.  The three split-KV attention kernels must
+   and past the rows (clipped), each case printing its route.  The paged
+   K/V write (one launch a layer on the serving path) as the decode
+   append (8 rows, one inactive) and the prefill chunk write (8 rows of 32
+   tokens, ragged, one padding row), fp32 and int8 pools, against both
+   the kernel's plain version and the full-pool oracle.  Data movement
+   must match bitwise, attention within rtol = atol = 1e-5 (float32 sums
+   in another order).  A poison check puts NaN in every unmapped page:
+   the attention outputs must stay finite.  The three split-KV attention
+   kernels must
    also be bitwise equal across two calls, and each row computed alone
    (one row, its table cut to the pages it needs) bitwise equal to the
    same row of the batch of 8; each logs its plan, and their rows of the
    JSON line carry it as ``kernel_route`` beside the profiler's
    ``device_ms``.  Kernel, plain version and, where one PyTorch
    call computes the same function, that call are timed with CUDA events
-   (median of 25); the gather, its first design, ``index_select`` and the
-   launch floor (a one-row gather of 16 bytes) also by the profiler's
+   (median of 25); the gather, ``index_select``, the paged K/V write and
+   the launch floor (a one-row gather of 16 bytes) also by the profiler's
    device time, since an event-timed call of a few µs sits on the floor.
 3. Paper workloads: first the three workload kernels against their plain
    versions, then the port's workload functions (``repro_torch.workloads``)
@@ -39,8 +44,11 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    matrix of 2**22 rows and columns, 32 entries a row of which Poisson(24)
    are live, columns uniform and sorted per row, built on the card from a
    seeded generator (the ELL SpMV, within rtol = atol = 1e-5: float32
-   sums of a row in another order); pagerank, 20 iterations on the same
-   graph with column-normalised weights through the SpMV kernel; sssp, 12
+   sums of a row in another order; also timed with its columns cut to
+   2**18, 2**20 and 2**22 distinct x entries, and on a row-local matrix
+   whose columns lie within 2,048 of the row, beside cuSPARSE);
+   pagerank, 20 iterations on the same graph with column-normalised
+   weights through the SpMV kernel; sssp, 12
    Bellman-Ford sweeps (plain tensor code, bitwise against the CPU on a
    2**18-node graph); gemv_col and trmv at n = 16,384 (``torch.matmul``);
    then ``python -m repro_torch.workloads``' own run at n = 128, which
@@ -52,19 +60,21 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    default, cp.async with x 4 bytes off alignment, and row blocks of 300
    and 100 rows with K/steps of 3 and 1; each case prints its route.
    Kernel, plain version and the library call (``x.t().contiguous()``,
-   the cuSPARSE CSR matvec) are timed with CUDA events; the panel kernel
-   on both routes, its first design and cuSPARSE also by the profiler.
+   the cuSPARSE CSR matvec) are timed with CUDA events; the ELL SpMV, the
+   panel kernel on both routes and cuSPARSE also by the profiler.
 4. Paged serving: full-width yi-6b (32 layers, d_model 4096, 32/4 heads,
    vocab 64000; random weights from a seeded torch.Generator) through the
    port's ``Scheduler``: 8 requests, prompts of 17-300 tokens, 32 new
    tokens each, batch 8, page 16, max_len 512, chunk 32.  First with fp32
    pools, then int8 pools in a pool tight enough to force evictions.  The
    token streams must equal ``static_batch_generate`` on the plain path
-   (``impl='ref'``), and every kernel of the path must have launched.
+   (``impl='ref'``), and every kernel of the path must have launched:
+   the paged K/V write, never the indirect converters.
    On a flip, the top two logits at that token on both paths (a chunked
    prefill of the prompt and the plain tokens before it) are logged.
-   Then an isolated prefill and decode run gives tokens/s and launches per
-   step.
+   Then an isolated prefill and decode run gives tokens/s, launches per
+   step (one paged K/V write a layer) and the profiler's kernel count of
+   one decode step and one prefill chunk.
 5. Speculative serving: the same model, prompts and pools with
    ``spec_k = 4`` and an ``NGramDrafter``: the tokens must equal plain
    greedy (phase 4's ``static_batch_generate``), verify must have
@@ -106,13 +116,14 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
 of the paged attention kernels add ``kernel_route`` (the plan's route) and
-``device_ms``; those of the gather and the panel SpMV add
-``kernel_route``, ``ms_before`` (the
-first design), ``device_ms`` / ``device_ms_before`` / ``library_device_ms``
-(profiler), and for the gather ``slab_bytes``, ``launch_floor_ms`` /
+``device_ms``; those of the gather, the paged K/V write and the two SpMVs
+add ``kernel_route``, ``device_ms`` / ``library_device_ms`` (profiler),
+for the gather ``slab_bytes``, ``launch_floor_ms`` /
 ``launch_floor_device_ms``, the routes checked and under ``shapes`` the
-same times for the int8 codes and scale rows, for the panel SpMV
-``ms_cp_async`` / ``device_ms_cp_async``.  Without a
+same times for the int8 codes and scale rows, for the paged K/V write
+under ``shapes`` the append and the int8 pools' times, for the ELL SpMV
+``x_sector_bytes`` (live entries times 32 bytes), for the panel SpMV ``ms_cp_async`` /
+``device_ms_cp_async``.  Without a
 GPU, or outside a checkout of the repository, it exits nonzero and prints
 no result.
 """
@@ -160,6 +171,9 @@ KERNELS = {
     "indirect_scatter": (
         "src/repro_torch/kernels/csrc/stream_converters.cu",
         "src/repro/kernels/stream_converters.py:170"),
+    "paged_kv_write": (
+        "src/repro_torch/kernels/csrc/stream_converters.cu",
+        "src/repro/kernels/stream_converters.py:170"),
     "paged_decode_attention": (
         "src/repro_torch/kernels/csrc/paged_decode.cu",
         "src/repro/kernels/paged_decode.py:113"),
@@ -195,29 +209,31 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:312"),
 }
 #: The record of each kernel that the JSON line reports: the paged ones at
-#: fp32, the strided ones at their widest burst (rwkv6-3b's wkv state), the
-#: workload ones at the workloads phase's full size.
+#: fp32 (the K/V write at the prefill chunk's shape), the strided ones at
+#: their widest burst (rwkv6-3b's wkv state), the workload ones at the
+#: workloads phase's full size.
 REPORTED = {name: "fp32" for name in KERNELS}
-REPORTED.update(strided_gather="rwkv6-3b s", strided_scatter="rwkv6-3b s",
+REPORTED.update(paged_kv_write="fp32 chunk", strided_gather="rwkv6-3b s",
+                strided_scatter="rwkv6-3b s",
                 tiled_transpose="16384 fp32", spmv_ell="2^22 rows",
                 spmv_ell_panel_kernel="2^20 rows", flash_attention="path bf16",
                 flash_attention_fwd="path bf16",
                 flash_attention_bwd="path bf16")
 
-#: Extra keys of the redesigned kernels' rows (the gather, the panel SpMV):
-#: the route their plan took, the first design's time, profiler device
-#: times beside the event times, the gather's launch floor (one 16-byte
-#: row), the routes it was checked on, its slab and its other path shapes,
-#: and the panel SpMV's cp.async route (x off alignment) timed.
-REDESIGN_KEYS = ("kernel_route", "ms_before", "device_ms", "device_ms_before",
-                 "library_device_ms", "launch_floor_ms",
-                 "launch_floor_device_ms", "ms_cp_async",
-                 "device_ms_cp_async", "routes", "slab_bytes", "shapes")
-#: The keys of the gather's other path shapes (int8 codes, int8 scale rows)
-#: under ``shapes`` in its row.
-SHAPE_KEYS = ("kernel_route", "slab_bytes", "ms", "device_ms", "ms_before",
-              "device_ms_before", "library_ms", "library_device_ms",
-              "bound_ms")
+#: Extra keys of the redesigned kernels' rows (the gather, the paged K/V
+#: write, the two SpMVs): the route their plan took, profiler device times
+#: beside the event times, the gather's launch floor (one 16-byte row), the
+#: routes it was checked on, its slab and its other path shapes, the
+#: write's other shapes, the ELL SpMV's x-sector bytes, and the panel
+#: SpMV's cp.async route (x off alignment).
+REDESIGN_KEYS = ("kernel_route", "device_ms", "library_device_ms",
+                 "launch_floor_ms", "launch_floor_device_ms", "ms_cp_async",
+                 "device_ms_cp_async", "routes", "slab_bytes", "shapes",
+                 "x_sector_bytes")
+#: The keys of a kernel's other path shapes under ``shapes`` in its row
+#: (the gather's int8 codes and scale rows; the write's append and int8).
+SHAPE_KEYS = ("kernel_route", "slab_bytes", "ms", "device_ms", "library_ms",
+              "library_device_ms", "bound_ms")
 
 # Sizes of the paper-workloads phase.
 ISMT_N = 16384
@@ -226,6 +242,10 @@ SPMV_R, SPMV_K, SPMV_NNZ = 1 << 22, 32, 24      # rows = columns, ELL width
 PANEL_R, PANEL_STEPS, PANEL, PANEL_ROWS = 1 << 20, 4, 512, 64
 PRANK_ITERS, SSSP_ITERS, SSSP_SUB = 20, 12, 1 << 18
 WORKLOAD_KERNELS = ("tiled_transpose", "spmv_ell", "spmv_ell_panel_kernel")
+#: The paged attention wrappers: each serving step launches one of them
+#: and one paged K/V write a layer.
+ATTENTION_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
+                     "paged_verify")
 
 # The training phase: yi-6b at full width cut to 4 layers, sequences of
 # train_4k's length, global batch 4 in 2 microbatches, AdamW; checkpoints
@@ -588,6 +608,8 @@ def check_kernels(ops, dev, lens, bw, flops):
             max_abs_err=0.0, ms=time_ms(run), plain_ms=time_ms(plain),
             library_ms=time_ms(lambda: dst.index_copy_(0, sidx64, packed)),
             bytes=2 * BATCH * row + BATCH * 4, ops=0)
+        records.update(check_paged_write(ops, dev, tag, kp, vp, ks, vs,
+                                         table, lengths))
 
     records.update(check_strided(ops, dev))
     records = add_bounds(records, bw, flops)
@@ -597,18 +619,113 @@ def check_kernels(ops, dev, lens, bw, flops):
         stag: {key: records[("indirect_gather", stag)][key]
                for key in SHAPE_KEYS}
         for stag in ("int8", "int8 scale rows")}
+    records[("paged_kv_write", REPORTED["paged_kv_write"])]["shapes"] = {
+        stag: {key: records[("paged_kv_write", stag)].get(key)
+               for key in SHAPE_KEYS}
+        for stag in ("fp32 append", "int8 append", "int8 chunk")}
     return records
 
 
+def check_paged_write(ops, dev, tag, kp, vp, ks, vs, table, lengths):
+    """The paged K/V write at a yi-6b layer's serving shapes, bitwise
+    against its plain version and the full-pool oracle, one launch a call:
+    the decode append (8 rows, the last one inactive; a chunk of one token,
+    as the decode step launches it) and the prefill chunk write (8 rows of
+    a 32-token chunk, ragged, one padding row), K and V (codes and scales
+    for int8).  Timed by events and the profiler (no
+    single PyTorch call computes the write).  Returns the records keyed
+    (name, "<tag> append" / "<tag> chunk")."""
+    records = {}
+    kvh, d = kp.shape[2], kp.shape[3]
+    elem = kp.element_size()
+    starts = torch.tensor([0, 32, 64, 96, 128, 160, 256, 288],
+                          dtype=torch.int32, device=dev)
+    counts = torch.tensor([32, 32, 17, 32, 5, 32, 32, 0], dtype=torch.int32,
+                          device=dev)
+    active = torch.tensor([1] * (BATCH - 1) + [0], dtype=torch.int32,
+                          device=dev)
+    cases = {  # the kernel's call, the oracle's, the rows' shape, st, ct
+        "append": (lambda k, v, **kw: ops.paged_kv_write(
+            *k, v[0][:, None], v[1][:, None], table, lengths, active, **kw),
+            lambda k, v, **kw: ops.paged_kv_append(
+                *k, *v, table, lengths, active, impl="ref", **kw),
+            (BATCH, kvh, d), lengths, active),
+        "chunk": (lambda k, v, **kw: ops.paged_kv_write_chunk(
+            *k, *v, table, starts, counts, **kw),
+            lambda k, v, **kw: ops.paged_kv_write_chunk(
+                *k, *v, table, starts, counts, impl="ref", **kw),
+            (BATCH, CHUNK, kvh, d), starts, counts),
+    }
+    for what, (call, oracle, shape, st, ct) in cases.items():
+        new = [torch.randn(shape, device=dev) for _ in range(2)]
+        new[0][0, ..., 0, :] = 0.0  # an all-zero row: int8 scale 1
+        pools = lambda: [t.clone() for t in (kp, vp)] + (
+            [] if ks is None else [ks.clone(), vs.clone()])
+
+        def run_on(p, fn=call):
+            kw = {} if ks is None else dict(k_scale=p[2], v_scale=p[3])
+            return fn(p[:2], new, **kw)
+
+        before = ops.paged_kv_write.launches
+        got = pools()
+        run_on(got)
+        torch.cuda.synchronize()
+        require(ops.paged_kv_write.launches == before + 1,
+                f"paged_kv_write {tag} {what}: not one launch")
+        want = pools()
+        run_on(want, oracle)
+        plain = pools()
+        shaped = [t.view((shape[0], -1) + shape[-2:]) for t in new]
+        ops.paged_kv_write(*plain[:2], *shaped, table, st, ct,
+                           *plain[2:], impl="ref")
+        for g, w, pl in zip(got, want, plain):
+            require(torch.equal(g, w) and torch.equal(g, pl),
+                    f"paged_kv_write {tag} {what}: not bitwise")
+        dest = ops.ref.paged_kv_destinations(
+            table, st, ct, shaped[0].shape[1], PAGE, kp.shape[0])
+        n_valid = int((dest >= 0).sum())
+        if ks is not None:
+            count_int8_scales(f"{tag} {what}", kvh, d, dest, shaped, got[2:])
+        nbytes = (2 * n_valid * kvh * d * (4 + elem)
+                  + (2 * n_valid * kvh * 4 if ks is not None else 0)
+                  + table.numel() * 4 + 2 * BATCH * 4)
+        p = pools()
+        records[("paged_kv_write", f"{tag} {what}")] = dict(
+            max_abs_err=0.0, ms=time_ms(lambda: run_on(p)),
+            device_ms=profile_ms(lambda: run_on(p)),
+            plain_ms=time_ms(lambda: run_on(p, oracle)),
+            library_ms=None, tokens=n_valid,
+            kernel_route="one launch: a warp a (token, K|V, kv head) row",
+            bytes=nbytes, ops=0)
+    return records
+
+
+def count_int8_scales(tag, kvh, d, dest, new, scales):
+    """Hold the scales the write kernel stored against the reference's
+    formula taken on the host in float32 numpy, amax * (1.0f / 127.0f)
+    (``amax / 127.0`` under ``jax.jit``; 1 for a zero row), and print how
+    many of them an unjitted division, amax / 127, would round otherwise."""
+    keep = dest.reshape(-1) >= 0
+    flat = dest.reshape(-1)[keep]
+    inv = np.float32(1.0) / np.float32(127.0)
+    n = unlike_ref = unlike_div = 0
+    for rows, pool in zip(new, scales):
+        amax = np.abs(rows.reshape(-1, kvh, d)[keep].cpu().numpy()).max(-1)
+        stored = pool.view(-1, kvh)[flat].cpu().numpy()
+        one = np.float32(1.0)
+        n += stored.size
+        unlike_ref += int((stored != np.where(amax > 0, amax * inv, one)).sum())
+        unlike_div += int((stored != np.where(
+            amax > 0, amax / np.float32(127.0), one)).sum())
+    require(unlike_ref == 0, f"paged_kv_write {tag}: {unlike_ref} of {n} "
+            f"int8 scales unlike the reference's amax * (1 / 127)")
+    log(f"paged_kv_write {tag}: {n} int8 scales, {unlike_ref} unlike the "
+        f"reference's amax * (1 / 127), {unlike_div} unlike amax / 127")
+
+
 def gather_times(ops, src, idx):
-    """The gather's event and profiler times at one shape, beside its first
-    design's and ``index_select``'s (the first design checked bitwise
-    first), and the route and slab its plan took."""
-    want = ops.indirect_gather(src, idx, impl="ref")
-    before = lambda: ops.indirect_gather_before(src, idx)
-    require(torch.equal(before(), want),
-            f"indirect_gather {tuple(src.shape)}: the first design is not "
-            "bitwise")
+    """The gather's event and profiler times at one shape, beside
+    ``index_select``'s, and the route and slab its plan took."""
     run = lambda: ops.indirect_gather(src, idx)
     idx64 = idx.long()
     library = lambda: torch.index_select(src, 0, idx64)
@@ -616,8 +733,7 @@ def gather_times(ops, src, idx):
     plan = ops.indirect_gather.plan
     return dict(
         kernel_route=plan.route, slab_bytes=plan.slab_bytes, ms=time_ms(run),
-        ms_before=time_ms(before), library_ms=time_ms(library),
-        device_ms=profile_ms(run), device_ms_before=profile_ms(before),
+        library_ms=time_ms(library), device_ms=profile_ms(run),
         library_device_ms=profile_ms(library))
 
 
@@ -853,10 +969,15 @@ def check_workload_kernels(ops, ref, dev, bw, flops, graph):
     require(torch.allclose(torch.mv(csr, x), want, **TOL),
             "cuSPARSE CSR matvec disagrees with the plain spmv")
     nbytes = vals.numel() * 8 + x.numel() * 4 + vals.shape[0] * 4
+    run = lambda: ops.spmv_ell(vals, cols, x)
+    library = lambda: torch.mv(csr, x)
     records[("spmv_ell", REPORTED["spmv_ell"])] = dict(
-        max_abs_err=err, ms=time_ms(lambda: ops.spmv_ell(vals, cols, x)),
+        max_abs_err=err, ms=time_ms(run),
         plain_ms=time_ms(lambda: ref.spmv_ell(vals, cols, x)),
-        library_ms=time_ms(lambda: torch.mv(csr, x)),
+        library_ms=time_ms(library), device_ms=profile_ms(run),
+        library_device_ms=profile_ms(library),
+        kernel_route=ops.spmv_ell.plan.route,
+        x_sector_bytes=32 * int(live.sum()),
         bytes=nbytes, ops=2 * int(live.sum()))
     del got, csr
     torch.cuda.empty_cache()
@@ -874,9 +995,6 @@ def check_workload_kernels(ops, ref, dev, bw, flops, graph):
     csr = csr_of(pv, pc, inside, x.numel())
     require(torch.allclose(torch.mv(csr, x), want, **TOL),
             "cuSPARSE CSR matvec disagrees with the plain panel spmv")
-    before = lambda: ops.spmv_ell_panel_before(pv, pc, x, pids, panel=PANEL)
-    require(torch.allclose(before(), want, **TOL),
-            "spmv_ell_panel_kernel: the first design disagrees")
     # x 4 bytes off a 16-byte boundary: the cp.async route.
     x_off = offset_copy(x, 4)
     errs = [check_panel(ops, ref, pv, pc, x_off, pids, stray,
@@ -890,9 +1008,8 @@ def check_workload_kernels(ops, ref, dev, bw, flops, graph):
              library_ms=time_ms(library),
              bytes=pv.numel() * 8 + x.numel() * 4 + PANEL_R * 4,
              ops=2 * int(inside.sum()), panel_bytes_read=panel_bytes,
-             kernel_route=route, ms_before=time_ms(before),
-             ms_cp_async=time_ms(cp_async), device_ms=profile_ms(run),
-             device_ms_before=profile_ms(before),
+             kernel_route=route, ms_cp_async=time_ms(cp_async),
+             device_ms=profile_ms(run),
              device_ms_cp_async=profile_ms(cp_async),
              library_device_ms=profile_ms(library))
     del pv, pc, pids, stray, want, x_off, csr
@@ -1213,7 +1330,17 @@ def throughput(serve_mod, cfg, dev, params, prompts):
                              n=5, sleep_cycles=STEP_SLEEP_CYCLES)
     step_wall_ms = t_decode * 1e3 / MAX_NEW
     n_prompt = sum(len(p) for p in prompts)
-    return dict(
+    # The profiler's kernel count of one decode step and one prefill chunk
+    # (the first chunk's rows): every launch, the library's included.
+    kernels = {}
+    for name, fn in (("decode_step", lambda: model._step(feed, c, c.lengths,
+                                                         act)),
+                     ("prefill_chunk", lambda: model.prefill_batch(
+                         *steps[0], box["cache"]))):
+        prof = profile_step(fn)
+        kernels[f"{name}_kernels"] = None if prof is None else prof["kernels"]
+        kernels[f"{name}_busy_ms"] = None if prof is None else prof["busy_ms"]
+    return dict(**kernels,
         prefill_tokens=n_prompt, prefill_s=t_prefill,
         prefill_tokens_per_s=n_prompt / t_prefill,
         prefill_chunk_steps=n_chunks,
@@ -1801,8 +1928,9 @@ def main() -> int:
         f"{weight_gb:.2f} GB of fp32 weights; prompts "
         f"{[len(p) for p in prompts]}")
     statics = {}
-    paged_kernels = ("indirect_gather", "indirect_scatter",
-                     "paged_decode_attention", "paged_prefill_attention")
+    paged_kernels = ("paged_kv_write", "paged_decode_attention",
+                     "paged_prefill_attention")
+    converters = ("indirect_gather", "indirect_scatter")
     for kv_dtype in ("fp32", "int8"):
         pool = tight_pool(prompts) if kv_dtype == "int8" else None
         out, static, sched, counts, secs = serve(
@@ -1829,11 +1957,22 @@ def main() -> int:
                 f"serve {kv_dtype}: not every request finished")
         require(all(counts[k] > 0 for k in paged_kernels),
                 f"serve {kv_dtype}: a kernel never launched: {counts}")
+        require(all(counts[k] == 0 for k in converters),
+                f"serve {kv_dtype}: a converter launched: {counts}")
+        require(counts["paged_kv_write"] == sum(
+            counts[k] for k in ATTENTION_KERNELS),
+            f"serve {kv_dtype}: not one K/V write a layer a step: {counts}")
         if kv_dtype == "int8":
             require(st.n_evictions >= 1,
                     "serve int8: the tight pool forced no eviction")
     tp = throughput(serve_mod, cfg, dev, params, prompts)
     log(f"throughput fp32 ({smi}): " + json.dumps(tp))
+    for step in ("decode", "prefill"):
+        per = tp[f"launches_per_{step}_step"]
+        require(per["paged_kv_write"] == cfg.n_layers
+                and all(per[k] == 0 for k in converters),
+                f"throughput: not one paged K/V write a layer a {step} "
+                f"step: {per}")
     phase_s["paged serving"] = time.perf_counter() - t0
 
     # -- phase 5: speculative serving, full-width yi-6b -----------------------
@@ -1863,9 +2002,14 @@ def main() -> int:
                 and all(len(t) == MAX_NEW for t in out.values()),
                 f"serve spec {kv_dtype}: not every request finished")
         require(st.spec_steps > 0 and counts["paged_verify"] > 0
-                and counts["indirect_scatter"] > 0
-                and counts["indirect_gather"] > 0,
+                and counts["paged_kv_write"] > 0,
                 f"serve spec {kv_dtype}: verify never launched: {counts}")
+        require(all(counts[k] == 0 for k in converters),
+                f"serve spec {kv_dtype}: a converter launched: {counts}")
+        require(counts["paged_kv_write"] == sum(
+            counts[k] for k in ATTENTION_KERNELS),
+            f"serve spec {kv_dtype}: not one K/V write a layer a step: "
+            f"{counts}")
         if kv_dtype == "int8":
             require(st.n_evictions >= 1,
                     "serve spec int8: the tight pool forced no eviction")

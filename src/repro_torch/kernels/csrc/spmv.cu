@@ -11,30 +11,49 @@
 // (R*K*(4 + 4) + C*4 + R*4) bytes over 3.35 TB/s.  The irregular part is
 // the gather x[cols]: on the TPU x sits whole in VMEM and the gather runs
 // there.  On the H100 x stays in device memory and its gather goes through
-// the read-only path (__ldg) and the 50 MB L2, which holds x whole up to
-// 12.5 M columns; rows whose columns are close share x's sectors in L2.
+// the read-only path and the 50 MB L2, which holds x whole up to 12.5 M
+// columns; rows whose columns are close share x's sectors in L2.
 //
-// spmv_ell, design: a group of G threads per row, G a power of two sized to
-// the row (K / 4 lanes for the vectorized path, up to 32), so a warp serves
-// 32 / G rows.  Where K is a multiple of 4 and both matrices are 16-byte
-// aligned, each lane loads four values and four indices with one 16-byte
-// load each, so a warp reads 512 contiguous bytes of vals and of cols and
-// has four independent x gathers in flight per lane; else each lane loads
-// one 4-byte value and index per step.  A column is clamped to [0, C-1]
-// (the reference's take(mode='clip')).  The lane partial sums are reduced
-// with warp shuffles.  Rows past R are masked, so R needs no padding to
-// the reference's row_block.  Summation order: each lane sums its own
-// entries (k = lane*V + j + i*G*V), then a tree over the lanes; the plain
-// version sums the row in torch's order, so the two agree to fp32 rounding.
+// spmv_ell, design: the matrix is a stream and x is a working set.  At
+// the workload's size (2**22 rows, K = 32, ~24 live entries a row) vals
+// and cols are 1.07 GB read once, and x is 16 MB gathered ~100 M times,
+// one 32-byte L2 sector a live entry: ~3.2 GB of L2 sector traffic beside
+// the 1.1 GB from device memory, so the x gathers, not the stream, set the
+// time.  Measured on the H100 (tools/spmv_ab.py): with the columns cut to
+// 2**20 and 2**18 distinct entries the same stream runs 3% and 9% faster,
+// so x's misses in L2 cost little and its sector rate the most.  An
+// evict-last L2 policy on x gained nothing there, and more gathers in
+// flight a lane (4 lanes a row, two 16-byte loads of cols each before any
+// gather) ran slower.  So the design keeps the stream out of the way and
+// the loads whole:
+//  - vals and cols are read once, as a stream: 16-byte loads with the
+//    evict-first (streaming) cache operator, so they do not push x out of
+//    L1 and the 50 MB L2;
+//  - x goes through the read-only path (__ldg) and L2, no policy;
+//  - lanes a row are sized so that each lane has one load of the row (8
+//    at K = 32): a warp's load reads four whole 128-byte rows of vals and
+//    of cols, and each lane's 4 gathers are independent.
+// The plan (kernels/plans.py SpmvPlan: entries a load `vec`, `lanes` a
+// row, threads, blocks) is chosen on the host from K and the alignment
+// and launched as given: 4 entries a load where K is a multiple of 4 and
+// vals and cols are 16-byte aligned, else 1; lanes the smallest power of
+// two that gives each load its own lane, at most 32.  Load i of a row
+// (entries i*vec .. i*vec + vec - 1) belongs to lane i % lanes.  A column
+// is clamped to [0, C-1] (the reference's take(mode='clip')); rows past R
+// are masked, so R needs no padding to the reference's row_block.
+// Summation order: each lane adds its entries in load order, entries of a
+// load in order; then a tree over the lanes (shuffles down by lanes/2, ..,
+// 1).  The plain version sums the row in torch's order, so the two agree
+// to fp32 rounding.
 //
 // spmv_ell_panel, design: the paper's indirect stream descriptor driving
-// the x copies.  The first design (kept below as repro_spmv_ell_panel_
-// before) ran one block per row block of the (row_blocks, steps)
-// panel_ids table, double-buffered 2 KB panels with cp.async and waited on
-// each, while vals and cols went through L1/L2 with no hint: latency-bound
-// at 45% of its bytes bound.  Now a block owns a tile of rows (kernels/
-// plans.py PanelPlan: `pack` whole row blocks, or a part of one when a row
-// block is too large for shared memory) and stages everything it needs at
+// the x copies.  The first design ran one block per row block of the
+// (row_blocks, steps) panel_ids table, double-buffered 2 KB panels with
+// cp.async and waited on each, while vals and cols went through L1/L2 with
+// no hint: latency-bound at 45% of its bytes bound.  Now a block owns a
+// tile of rows (kernels/plans.py PanelPlan: `pack` whole row blocks, or a
+// part of one when a row block is too large for shared memory) and stages
+// everything it needs at
 // once: every step's x panel of its row blocks (panel_ids[b, s], clamped
 // to x's panels) and the tile's vals and cols, then computes from shared
 // memory.  Eight such blocks of ~25 KB fit on an SM, so ~200 KB per SM are
@@ -69,39 +88,41 @@ __device__ __forceinline__ float gather_clip(const float* __restrict__ x,
   return __ldg(x + col);
 }
 
-// y[row] for rows of the ELL matrix; G lanes per row, V entries per load.
+// y[row] for rows of the ELL matrix by the plan: `lanes` lanes a row, V
+// entries a load (see the design note above).
 template <int V>
-__global__ void spmv_ell_kernel(const float* __restrict__ vals,
-                                const int* __restrict__ cols,
-                                const float* __restrict__ x,
-                                float* __restrict__ y, long long r, int k,
-                                int c, int g) {
+__global__ void __launch_bounds__(kThreads)
+    spmv_ell_kernel(const float* __restrict__ vals,
+                    const int* __restrict__ cols,
+                    const float* __restrict__ x, float* __restrict__ y,
+                    long long r, int k, int c, int lanes) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long row = tid / g;
-  const int lane = (int)(tid % g);
+  const long long row = tid / lanes;
+  const int lane = (int)(tid % lanes);
   float acc = 0.f;
   if (row < r) {
     const long long off = row * k;
     if (V == 4) {
       const float4* v4 = reinterpret_cast<const float4*>(vals + off);
       const int4* c4 = reinterpret_cast<const int4*>(cols + off);
-      for (int i = lane; i < k / 4; i += g) {
-        const float4 v = __ldg(v4 + i);
-        const int4 cc = __ldg(c4 + i);
+      for (int i = lane; i < k / 4; i += lanes) {
+        const float4 v = __ldcs(v4 + i);
+        const int4 cc = __ldcs(c4 + i);
         acc += v.x * gather_clip(x, cc.x, c);
         acc += v.y * gather_clip(x, cc.y, c);
         acc += v.z * gather_clip(x, cc.z, c);
         acc += v.w * gather_clip(x, cc.w, c);
       }
     } else {
-      for (int i = lane; i < k; i += g) {
-        acc += __ldg(vals + off + i) * gather_clip(x, __ldg(cols + off + i), c);
+      for (int i = lane; i < k; i += lanes) {
+        acc += __ldcs(vals + off + i) *
+               gather_clip(x, __ldcs(cols + off + i), c);
       }
     }
   }
   // Every lane of the warp takes part in the shuffles, masked rows too.
-  for (int s = g / 2; s > 0; s /= 2) {
-    acc += __shfl_down_sync(0xffffffffu, acc, s, g);
+  for (int s = lanes / 2; s > 0; s /= 2) {
+    acc += __shfl_down_sync(0xffffffffu, acc, s, lanes);
   }
   if (row < r && lane == 0) y[row] = acc;
 }
@@ -116,78 +137,6 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
-}
-
-__device__ __forceinline__ void load_panel(float* dst, const float* x,
-                                           int pid, int n_panels, int panel,
-                                           bool vec16) {
-  pid = pid < 0 ? 0 : (pid >= n_panels ? n_panels - 1 : pid);
-  const float* src = x + (long long)pid * panel;
-  if (vec16) {
-    for (int i = threadIdx.x; i < panel / 4; i += blockDim.x) {
-      cp_async16(dst + 4 * i, src + 4 * i);
-    }
-  } else {
-    for (int i = threadIdx.x; i < panel; i += blockDim.x) {
-      cp_async4(dst + i, src + i);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n");
-}
-
-// The panel kernel's first design, kept for comparison on the card
-// (repro_spmv_ell_panel_before); no caller of the port uses it.  Dynamic
-// shared memory: two panel buffers (step s uses the one at smem + (s & 1) *
-// panel), then the row block's sums.
-__global__ void panel_before_kernel(const float* __restrict__ vals,
-                                    const int* __restrict__ cols,
-                                    const float* __restrict__ x,
-                                    const int* __restrict__ panel_ids,
-                                    float* __restrict__ y, int row_block,
-                                    int k, int steps, int panel,
-                                    int n_panels, int g, bool vec16) {
-  extern __shared__ float smem[];
-  float* ysum = smem + 2 * panel;
-  const long long rb = blockIdx.x;
-  const int* pids = panel_ids + rb * steps;
-  const int kb = k / steps;
-  const int rows_per_pass = blockDim.x / g;
-  const int lane = threadIdx.x % g;
-  for (int i = threadIdx.x; i < row_block; i += blockDim.x) ysum[i] = 0.f;
-  load_panel(smem, x, pids[0], n_panels, panel, vec16);
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      load_panel(smem + ((s + 1) & 1) * panel, x, pids[s + 1], n_panels, panel,
-                 vec16);
-    } else {
-      asm volatile("cp.async.commit_group;\n");  // an empty group
-    }
-    asm volatile("cp.async.wait_group 1;\n");  // step s's panel has landed
-    __syncthreads();
-    const float* xs = smem + (s & 1) * panel;
-    int pid = pids[s];
-    pid = pid < 0 ? 0 : (pid >= n_panels ? n_panels - 1 : pid);
-    const int base = pid * panel;
-    for (int r0 = 0; r0 < row_block; r0 += rows_per_pass) {
-      const int row = r0 + threadIdx.x / g;
-      float acc = 0.f;
-      if (row < row_block) {
-        const long long off = (rb * row_block + row) * k + (long long)s * kb;
-        for (int e = lane; e < kb; e += g) {
-          const int local = __ldg(cols + off + e) - base;
-          if (local >= 0 && local < panel) acc += __ldg(vals + off + e) * xs[local];
-        }
-      }
-      for (int d = g / 2; d > 0; d /= 2) {
-        acc += __shfl_down_sync(0xffffffffu, acc, d, g);
-      }
-      if (row < row_block && lane == 0) ysum[row] += acc;
-    }
-    __syncthreads();  // this buffer is refilled at step s + 2
-  }
-  for (int i = threadIdx.x; i < row_block; i += blockDim.x) {
-    y[rb * row_block + i] = ysum[i];
-  }
 }
 
 __device__ __forceinline__ int clamp_panel(int pid, int n_panels) {
@@ -341,12 +290,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-int lanes_for(int entries) {
-  int g = 1;
-  while (g < entries && g < 32) g *= 2;
-  return g;
-}
-
 template <bool kBulk>
 cudaError_t launch_panel(const void* vals, const void* cols, const void* x,
                          const void* panel_ids, void* y,
@@ -373,28 +316,22 @@ cudaError_t launch_panel(const void* vals, const void* cols, const void* x,
 }  // namespace
 
 // y (r,) = ELL (vals, cols) (r, k) @ x (c,), fp32 values, int32 columns
-// clamped to [0, c-1].
+// clamped to [0, c-1], by the host's plan (kernels/plans.py SpmvPlan),
+// taken as given: `vec` entries a load (4 or 1), `lanes` lanes a row (a
+// power of two up to 32), `blocks` blocks of `threads` (256) threads.
 extern "C" int repro_spmv_ell(const void* vals, const void* cols,
                               const void* x, void* y, long long r, int k,
-                              int c, void* stream) {
+                              int c, int vec, int lanes, int threads,
+                              long long blocks, void* stream) {
   if (r <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 =
-      k % 4 == 0 &&
-      ((reinterpret_cast<uintptr_t>(vals) | reinterpret_cast<uintptr_t>(cols)) %
-       16) == 0;
-  const int g = lanes_for(vec4 ? k / 4 : k);
-  const long long blocks = (r * g + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (vec4) {
-    spmv_ell_kernel<4><<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(vals), static_cast<const int*>(cols),
-        static_cast<const float*>(x), static_cast<float*>(y), r, k, c, g);
-  } else {
-    spmv_ell_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(vals), static_cast<const int*>(cols),
-        static_cast<const float*>(x), static_cast<float*>(y), r, k, c, g);
+  if (threads != kThreads || blocks <= 0 || blocks > 0x7fffffffLL ||
+      (vec != 4 && vec != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto kernel = vec == 4 ? &spmv_ell_kernel<4> : &spmv_ell_kernel<1>;
+  kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(cols),
+      static_cast<const float*>(x), static_cast<float*>(y), r, k, c, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,39 +364,4 @@ extern "C" int repro_spmv_ell_panel(const void* vals, const void* cols,
                                 split, blocks, panels_bytes, vals_bytes,
                                 part_bytes, smem, s);
   return static_cast<int>(err);
-}
-
-// The panel kernel's first design: one block per row block, two panels
-// double-buffered with cp.async.  For comparison on the card only.
-extern "C" int repro_spmv_ell_panel_before(const void* vals,
-                                           const void* cols, const void* x,
-                                           const void* panel_ids, void* y,
-                                           long long row_blocks,
-                                           int row_block, int k, int steps,
-                                           int panel, int c, void* stream) {
-  if (row_blocks <= 0 || row_block <= 0) {
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (steps <= 0 || k % steps != 0 || panel <= 0 || c % panel != 0 ||
-      row_blocks > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (2 * (size_t)panel + row_block) * sizeof(float);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        panel_before_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const bool vec16 =
-      panel % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int g = lanes_for(k / steps);
-  panel_before_kernel<<<(unsigned)row_blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(vals), static_cast<const int*>(cols),
-      static_cast<const float*>(x), static_cast<const int*>(panel_ids),
-      static_cast<float*>(y), row_block, k, steps, panel, c / panel, g,
-      vec16);
-  return static_cast<int>(cudaGetLastError());
 }

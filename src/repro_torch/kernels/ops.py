@@ -11,10 +11,13 @@ Each takes ``impl`` in ``{'cuda', 'ref'}``:
 * ``'ref'``: the plain version on any device — the oracle a run on the card
   is held against.
 
-``paged_kv_append`` and ``paged_kv_write_chunk`` are composed over the two
-indirect converter kernels, and ``recurrent_state_read`` /
-``recurrent_state_write`` over the two strided ones, as in the reference.
-The writes update the pools in place, where the JAX engine donates them;
+``paged_kv_append`` and ``paged_kv_write_chunk`` launch the paged K/V
+write kernel (``paged_kv_write``: every valid token into its page, K and V,
+codes and scales, one launch a layer), where the reference composes them
+over the indirect converters; ``recurrent_state_read`` /
+``recurrent_state_write`` are composed over the two strided converters, as
+in the reference.  The writes update the pools in place, where the JAX
+engine donates them;
 the pools are returned all the same so the call sites of both packages
 read alike.  ``paged_verify`` launches the prefill kernel with
 ``starts = lengths``; ``speculative_accept`` is plain integer tensor code
@@ -34,22 +37,19 @@ streamed SpMV, which the reference calls directly since its ``ops`` has no
 wrapper for it.  Unlike the reference's wrappers, these pad nothing: the
 kernels mask the ragged edge of a tile or row block.
 
-Each of the thirteen kernel wrappers counts its launches in an integer
+Each of the fourteen kernel wrappers counts its launches in an integer
 attribute, ``launches``, raised by one only where the kernel is launched
 (:func:`launch_counts`, :func:`reset_launch_counts`).  ``paged_verify``
 counts under its own name, not the prefill kernel's.
 
-``indirect_gather``, ``spmv_ell_panel_kernel`` and the three paged
-attention wrappers launch by a plan chosen on the host (:mod:`.plans`)
-from the shapes and the pointers' alignment (the gather's copy unit, the
-panel SpMV's route and tiling, the attention kernels' spans, tiles and
-shared memory); each keeps its last plan as ``.plan``.  The attention
-wrappers also allocate the plan's scratch for the span partials; their
-C entries launch the span blocks and then the combine, one count a call.
-``indirect_gather_before`` and
-``spmv_ell_panel_before`` launch the two kernels' first designs, only to
-time them beside the current ones on the card; nothing on a path calls
-them and they count nothing.
+``indirect_gather``, ``spmv_ell``, ``spmv_ell_panel_kernel`` and the three
+paged attention wrappers launch by a plan chosen on the host
+(:mod:`.plans`) from the shapes and the pointers' alignment (the gather's
+copy unit, the SpMV's lanes a row and load width, the panel SpMV's route
+and tiling, the attention kernels' spans, tiles and shared memory); each
+keeps its last plan as ``.plan``.  The attention wrappers also allocate the
+plan's scratch for the span partials; their C entries launch the span
+blocks and then the combine, one count a call.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ import torch
 
 from . import ref
 from .build import library
-from .plans import attention_plan, gather_plan, panel_plan
+from .plans import attention_plan, gather_plan, panel_plan, spmv_plan
 
 __all__ = [
     "KERNELS",
@@ -70,11 +70,11 @@ __all__ = [
     "flash_attention_bwd",
     "flash_attention_fwd",
     "indirect_gather",
-    "indirect_gather_before",
     "indirect_scatter",
     "launch_counts",
     "paged_decode_attention",
     "paged_kv_append",
+    "paged_kv_write",
     "paged_kv_write_chunk",
     "paged_prefill_attention",
     "paged_verify",
@@ -83,7 +83,6 @@ __all__ = [
     "reset_launch_counts",
     "speculative_accept",
     "spmv_ell",
-    "spmv_ell_panel_before",
     "spmv_ell_panel_kernel",
     "strided_gather",
     "strided_scatter",
@@ -122,10 +121,13 @@ _SIGNATURES = {  # C entry: (library, argument types)
     # grid_y, threads.
     "repro_indirect_gather": ("stream_converters",
                               [_P] * 3 + [_L] * 3 + [_I] * 5 + [_P]),
-    "repro_indirect_gather_before": ("stream_converters", _CONVERTER_ARGS),
     "repro_indirect_scatter": ("stream_converters", _CONVERTER_ARGS),
     "repro_strided_gather": ("stream_converters", _STRIDED_ARGS),
     "repro_strided_scatter": ("stream_converters", _STRIDED_ARGS),
+    # k_new, v_new, the four pools, table, starts, counts; rows, chunk,
+    # n_pages, pool_pages, page, kvh, d, quantized, vec.
+    "repro_paged_kv_write": ("stream_converters",
+                             [_P] * 9 + [_L] + [_I] * 8 + [_P]),
     # ... out, scratch, shape ints, scale, quantized, then the plan (an
     # int array in the order of plans.ATTENTION_FIELDS) and the stream.
     "repro_paged_decode": ("paged_decode",
@@ -133,12 +135,11 @@ _SIGNATURES = {  # C entry: (library, argument types)
     "repro_paged_prefill": ("paged_prefill",
                             [_P] * 10 + [_I] * 7 + [_F, _I, _P, _P]),
     "repro_tiled_transpose": ("transpose", [_P] * 2 + [_L] * 2 + [_I, _P]),
-    "repro_spmv_ell": ("spmv", [_P] * 4 + [_L] + [_I] * 2 + [_P]),
+    # ... r, k, c, then the plan: vec, lanes, threads, blocks.
+    "repro_spmv_ell": ("spmv", [_P] * 4 + [_L] + [_I] * 5 + [_L, _P]),
     # ... row_blocks, row_block, k, steps, panel, c, then the plan: route,
     # tile rows, pack, split, blocks, panels / vals / part bytes, smem.
     "repro_spmv_ell_panel": ("spmv", [_P] * 5 + [_L] + [_I] * 14 + [_P]),
-    "repro_spmv_ell_panel_before": ("spmv",
-                                    [_P] * 5 + [_L] + [_I] * 5 + [_P]),
     "repro_flash_attention": ("flash_attention", _FLASH_TAIL(5)),
     "repro_flash_attention_lse": ("flash_attention", _FLASH_TAIL(6)),
     "repro_flash_attention_bwd_dkv": ("flash_attention", _FLASH_TAIL(11)),
@@ -182,7 +183,11 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _int32(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` as a contiguous int32 tensor: itself, with no conversion
+    call, where it already is one (the paged steps are host-bound)."""
     _check(t.device == device, f"index tensor on {t.device}, data on {device}")
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
 
 
@@ -324,23 +329,6 @@ def _gather_launch(src, idx, out, plan) -> None:
             _stream(src))
 
 
-def indirect_gather_before(src: torch.Tensor, indices: torch.Tensor
-                           ) -> torch.Tensor:
-    """:func:`indirect_gather` on the card by its first design (one block
-    per row), to time it beside the current one.  Nothing on the port's
-    paths calls it, and it counts no launches."""
-    _check(src.is_cuda and src.is_contiguous() and src.dim() >= 1
-           and src.shape[0] > 0,
-           "indirect_gather_before: src must be a contiguous non-empty "
-           "CUDA tensor")
-    idx = _int32(indices, src.device)
-    out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    _launch("repro_indirect_gather_before", _ptr(src), _ptr(idx), _ptr(out),
-            src.shape[0], idx.shape[0], _row_bytes(src), _stream(src))
-    return out
-
-
 @_counted
 def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
                      indices: torch.Tensor, impl: str = "cuda"
@@ -349,7 +337,7 @@ def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
 
     Returns ``dst``.  An index outside ``[0, len(dst))`` drops its row.
     Duplicate in-range indices have no defined order (the kernel's blocks
-    race); the paged callers never repeat one.
+    race).
     """
     if not _use_kernel(impl, dst):
         return ref.indirect_scatter(dst, packed, indices)
@@ -590,8 +578,65 @@ def speculative_accept(drafts: torch.Tensor, greedy: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged KV writes, composed over the converters
+# Paged KV writes: one kernel launch a layer
 # ---------------------------------------------------------------------------
+
+
+@_counted
+def paged_kv_write(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    rows: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    impl: str = "cuda",
+):
+    """Write every valid token of ``k_new`` / ``v_new`` ``(R, C, KVH, D)``
+    straight into its page, in place: K and V (int8 codes and scales with
+    the scale pools given) in one launch.
+
+    Token ``(r, c)`` lands at position ``starts[r] + c`` through table row
+    ``rows[r]``; it is dropped where ``c >= counts[r]``, the position lies
+    outside the table row or its page id outside ``[0, P)``
+    (:func:`ref.paged_kv_destinations`).  Repeated destinations have no
+    defined order.  :func:`paged_kv_append` and :func:`paged_kv_write_chunk`
+    run this kernel on the card.  Returns ``(k_pages, v_pages)``, plus
+    ``(k_scale, v_scale)`` when quantizing.
+    """
+    if not _use_kernel(impl, k_pages):
+        return ref.paged_kv_write(k_pages, v_pages, k_new, v_new, rows,
+                                  starts, counts, k_scale, v_scale)
+    dev = k_pages.device
+    quantized = _check_pools(k_pages, v_pages, k_scale, v_scale, dev)
+    p, page, kvh, d = k_pages.shape
+    r, c = k_new.shape[:2]
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        _check(t.device == dev and t.dtype == torch.float32
+               and t.is_contiguous() and t.shape == (r, c, kvh, d),
+               f"paged_kv_write: {name} must be contiguous float32 "
+               f"({r}, {c}, {kvh}, {d}) on {dev}, got {tuple(t.shape)} "
+               f"{t.dtype} on {t.device}")
+    table, starts, counts = (_int32(t, dev) for t in (rows, starts, counts))
+    _check(table.dim() == 2 and table.shape[0] == r
+           and starts.shape == (r,) and counts.shape == (r,),
+           f"paged_kv_write: the table must be ({r}, n_pages) and "
+           f"starts / counts ({r},), got {tuple(table.shape)}, "
+           f"{tuple(starts.shape)}, {tuple(counts.shape)}")
+    align = (k_new.data_ptr() | v_new.data_ptr() | k_pages.data_ptr()
+             | v_pages.data_ptr())
+    vec = 4 if d % 4 == 0 and align % 16 == 0 else 1
+    _launch("repro_paged_kv_write", _ptr(k_new), _ptr(v_new), _ptr(k_pages),
+            _ptr(v_pages), _ptr(k_scale), _ptr(v_scale), _ptr(table),
+            _ptr(starts), _ptr(counts), r, c, table.shape[1], p, page, kvh,
+            d, int(quantized), vec, _stream(k_pages))
+    paged_kv_write.launches += 1
+    if k_scale is not None:
+        return k_pages, v_pages, k_scale, v_scale
+    return k_pages, v_pages
 
 
 def paged_kv_append(
@@ -608,11 +653,14 @@ def paged_kv_append(
 ):
     """Append one KV token per sequence into the paged pool, in place.
 
-    ``impl='cuda'`` is one indirect scatter per pool over the row-flattened
-    pool; ``impl='ref'`` the full-pool oracle.  Inactive sequences, and
-    appends past the table row, are routed to an out-of-range index and
-    dropped.  With the ``(P, page, KVH)`` scale pools given the rows are
-    quantized on write, codes and scales through the same indices.
+    ``impl='cuda'`` is one launch of the paged K/V write kernel
+    (:func:`paged_kv_write` with ``C = 1``, ``lengths`` as the starts and
+    ``active`` as the counts); ``impl='ref'`` the full-pool oracle.  The
+    serving step launches :func:`paged_kv_write` itself and makes the new
+    lengths once a step.  Inactive sequences (``active`` bool, or 0/1
+    ints), appends past the table row and page ids outside ``[0, P)``
+    write nothing.  With the ``(P, page, KVH)`` scale pools given the rows
+    are quantized on write, codes and scales at the same slots.
 
     Returns ``(k_pages, v_pages, new_lengths)``, plus ``(k_scale,
     v_scale)`` when quantizing.
@@ -622,32 +670,12 @@ def paged_kv_append(
             k_pages, v_pages, k_new, v_new, page_table, lengths, active,
             k_scale=k_scale, v_scale=v_scale,
         )
-    p, page, kvh, d = k_pages.shape
-    n_pages = page_table.shape[1]
-    quantized = k_scale is not None
-    if quantized:
-        k_new, k_s = ref.quantize_kv(k_new)
-        v_new, v_s = ref.quantize_kv(v_new)
-    lens = lengths.long()
     if active is None:
-        active = torch.ones_like(lens, dtype=torch.bool)
-    slot = (lens // page).clamp(0, n_pages - 1)
-    pids = page_table.long().gather(1, slot[:, None])[:, 0]
-    flat_idx = torch.where(
-        active & (lens < n_pages * page), pids * page + lens % page,
-        torch.full_like(pids, p * page),
-    )
-
-    def write(pool, new, width):
-        indirect_scatter(pool.view(p * page, width), new.reshape(-1, width),
-                         flat_idx, impl=impl)
-
-    write(k_pages, k_new, kvh * d)
-    write(v_pages, v_new, kvh * d)
+        active = torch.ones_like(lengths, dtype=torch.int32)
+    paged_kv_write(k_pages, v_pages, k_new[:, None], v_new[:, None],
+                   page_table, lengths, active, k_scale, v_scale, impl=impl)
     new_len = lengths + active.to(lengths.dtype)
-    if quantized:
-        write(k_scale, k_s, kvh)
-        write(v_scale, v_s, kvh)
+    if k_scale is not None:
         return k_pages, v_pages, new_len, k_scale, v_scale
     return k_pages, v_pages, new_len
 
@@ -664,17 +692,16 @@ def paged_kv_write_chunk(
     v_scale: Optional[torch.Tensor] = None,
     impl: str = "cuda",
 ):
-    """Batched chunked-prefill write, bounded by the pages the chunk touches.
+    """Batched chunked-prefill write: sequence ``r`` writes its ``counts[r]``
+    leading rows of ``k_new[r]`` / ``v_new[r]`` at ``starts[r] + c``, in
+    place.
 
-    ``impl='ref'`` is the full-pool oracle.  ``impl='cuda'`` follows the
-    reference's converter path: each sequence's chunk spans at most
-    ``W = ceil(C/page) + 1`` pages, so it gathers those W pages (one
-    indirect read), scatters the chunk's rows into the gathered window, and
-    writes the touched pages back (one indirect write) — R·W pages of
-    traffic, never the whole pool.  Window slots that cover no valid token
-    are routed out of range on the way back, so a stale copy never
-    clobbers another sequence's page.  With scale pools the chunk is
-    quantized on write and the scales take the same window walk.
+    ``impl='ref'`` is the full-pool oracle.  ``impl='cuda'`` is one launch
+    of the paged K/V write kernel (:func:`paged_kv_write`), which stores
+    each token straight into its page (the reference's converter path
+    gathers the pages the chunk touches, scatters the chunk into them and
+    writes them back, because a TPU DMA moves whole blocks).  With scale
+    pools the chunk is quantized on write.
 
     Returns ``(k_pages, v_pages)``, plus ``(k_scale, v_scale)`` when
     quantizing; all are updated in place.
@@ -684,48 +711,8 @@ def paged_kv_write_chunk(
             k_pages, v_pages, k_new, v_new, rows, starts, counts,
             k_scale=k_scale, v_scale=v_scale,
         )
-    p, page, kvh, d = k_pages.shape
-    r, c = k_new.shape[:2]
-    n_pages = rows.shape[1]
-    quantized = k_scale is not None
-    if quantized:
-        k_new, k_s = ref.quantize_kv(k_new)
-        v_new, v_s = ref.quantize_kv(v_new)
-    dev = rows.device
-    st = starts.long()
-    ct = counts.long()
-    w = -(-c // page) + 1
-    p_lo = st // page                                              # (R,)
-    lp = p_lo[:, None] + torch.arange(w, device=dev)               # (R, W)
-    pids = rows.long().gather(1, lp.clamp(0, n_pages - 1))         # (R, W)
-    # A window slot is real iff it covers >= 1 valid token of its sequence.
-    p_hi = (st + (ct - 1).clamp(min=0)) // page
-    real = (lp <= p_hi[:, None]) & (ct[:, None] > 0) & (lp < n_pages)
-    back = torch.where(real, pids, torch.full_like(pids, p)).reshape(-1)
-    # Local scatter index of token (r, c) inside the (R, W, page) window.
-    ar = torch.arange(c, device=dev)
-    pos = st[:, None] + ar                                         # (R, C)
-    valid = ar[None, :] < ct[:, None]
-    wp = pos // page - p_lo[:, None]
-    loc = (torch.arange(r, device=dev)[:, None] * w + wp) * page + pos % page
-    loc = torch.where(valid, loc, torch.full_like(loc, r * w * page))
-    loc = loc.reshape(-1)
-    src = pids.clamp(0, p - 1).reshape(-1)
-
-    def write(pool, new, width):
-        flat = pool.view(p, page * width)
-        win = indirect_gather(flat, src, impl=impl)                # (R*W, ..)
-        indirect_scatter(win.view(r * w * page, width),
-                         new.reshape(-1, width), loc, impl=impl)
-        indirect_scatter(flat, win, back, impl=impl)
-
-    write(k_pages, k_new, kvh * d)
-    write(v_pages, v_new, kvh * d)
-    if quantized:
-        write(k_scale, k_s, kvh)
-        write(v_scale, v_s, kvh)
-        return k_pages, v_pages, k_scale, v_scale
-    return k_pages, v_pages
+    return paged_kv_write(k_pages, v_pages, k_new, v_new, rows, starts,
+                          counts, k_scale, v_scale, impl=impl)
 
 
 # ---------------------------------------------------------------------------
@@ -788,8 +775,9 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     ``(C,)`` float32; columns are clamped to ``[0, C-1]``.
 
     ``row_block`` is the reference's rows per grid step; the kernel sizes
-    its thread groups to K and masks rows past R, so any R works and
-    ``row_block`` only has to be positive.
+    its lanes to K (:func:`.plans.spmv_plan`, kept as ``spmv_ell.plan``)
+    and masks rows past R, so any R works and ``row_block`` only has to be
+    positive.
     """
     _check(row_block > 0, f"spmv_ell: row_block {row_block} <= 0")
     if not _use_kernel(impl, x):
@@ -797,10 +785,23 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     vals, cols, x = _check_ell(vals, cols, x, "spmv_ell")
     r, k = vals.shape
     y = torch.empty(r, dtype=torch.float32, device=x.device)
-    _launch("repro_spmv_ell", _ptr(vals), _ptr(cols), _ptr(x), _ptr(y), r, k,
-            x.shape[0], _stream(x))
+    plan = spmv_plan(r, k, (vals.data_ptr() | cols.data_ptr()) % 16 == 0)
+    _spmv_launch(vals, cols, x, y, plan)
+    spmv_ell.plan = plan
     spmv_ell.launches += 1
     return y
+
+
+spmv_ell.plan = None  # the plan of the last launch
+
+
+def _spmv_launch(vals, cols, x, y, plan) -> None:
+    """Launch the ELL SpMV kernel by ``plan`` (a :class:`.plans.SpmvPlan`
+    for these operands)."""
+    r, k = vals.shape
+    _launch("repro_spmv_ell", _ptr(vals), _ptr(cols), _ptr(x), _ptr(y), r, k,
+            x.shape[0], plan.vec, plan.lanes, plan.threads, plan.blocks,
+            _stream(x))
 
 
 @_counted
@@ -851,25 +852,6 @@ def spmv_ell_panel_kernel(vals: torch.Tensor, cols: torch.Tensor,
 
 
 spmv_ell_panel_kernel.plan = None  # the plan of the last launch
-
-
-def spmv_ell_panel_before(vals: torch.Tensor, cols: torch.Tensor,
-                          x: torch.Tensor, panel_ids: torch.Tensor,
-                          panel: int = 512) -> torch.Tensor:
-    """:func:`spmv_ell_panel_kernel` on the card by its first design (one
-    block per row block, two panels double-buffered), to time it beside the
-    current one.  Nothing on the port's paths calls it, and it counts no
-    launches."""
-    _check(x.is_cuda, "spmv_ell_panel_before: x must be a CUDA tensor")
-    vals, cols, x = _check_ell(vals, cols, x, "spmv_ell_panel_before")
-    pids = _int32(panel_ids, x.device)
-    r, k = vals.shape
-    row_blocks, steps = pids.shape
-    y = torch.empty(r, dtype=torch.float32, device=x.device)
-    _launch("repro_spmv_ell_panel_before", _ptr(vals), _ptr(cols), _ptr(x),
-            _ptr(pids), _ptr(y), row_blocks, r // row_blocks, k, steps,
-            panel, x.shape[0], _stream(x))
-    return y
 
 
 # ---------------------------------------------------------------------------
@@ -1074,11 +1056,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Launch counts
 # ---------------------------------------------------------------------------
 
-#: The thirteen kernel wrappers, each with its ``launches`` count.
-KERNELS = (indirect_gather, indirect_scatter, paged_decode_attention,
-           paged_prefill_attention, paged_verify, strided_gather,
-           strided_scatter, tiled_transpose, spmv_ell, spmv_ell_panel_kernel,
-           flash_attention, flash_attention_fwd, flash_attention_bwd)
+#: The fourteen kernel wrappers, each with its ``launches`` count.
+KERNELS = (indirect_gather, indirect_scatter, paged_kv_write,
+           paged_decode_attention, paged_prefill_attention, paged_verify,
+           strided_gather, strided_scatter, tiled_transpose, spmv_ell,
+           spmv_ell_panel_kernel, flash_attention, flash_attention_fwd,
+           flash_attention_bwd)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,5 +1,5 @@
-"""Launch plans of the gather, the panel SpMV and the paged attention
-kernels, chosen on the host.
+"""Launch plans of the gather, the ELL and panel SpMVs and the paged
+attention kernels, chosen on the host.
 
 Plain Python, no torch: :mod:`.ops` computes a plan from the call's shapes
 and pointer alignment and passes its fields to the C entry, which launches
@@ -17,6 +17,14 @@ bytes ``[j * slab_bytes, min((j + 1) * slab_bytes, row_bytes))`` with
 ``slab_bytes = threads * unit``.  ``grid_y`` covers the row, so every slab
 of every row is in flight at once (up to 65,535 blocks a row).  A row of
 more than ``GATHER_MAX_UNITS`` units has no plan.
+
+**ELL SpMV** (``spmv.cu``, ``spmv_ell_kernel``).  ``lanes`` lanes (a
+power of two up to 32) serve a row; a load is ``vec`` entries of ``vals``
+and of ``cols`` (4, one 16-byte word each, where K is a multiple of 4 and
+both are 16-byte aligned, else 1).  Load ``i`` of a row belongs to lane
+``i % lanes``.  ``lanes`` is the smallest power of two that gives each
+load of a row its own lane (8 at K = 32: a warp reads four whole 128-byte
+rows a load), at most 32.
 
 **Panel SpMV** (``spmv.cu``, ``spmv_ell_panel_kernel``).  A block owns a
 tile of rows: ``pack`` whole row blocks, or (``split`` > 1) a part of one
@@ -52,13 +60,15 @@ import math
 from dataclasses import dataclass
 
 __all__ = ["ATTENTION_FIELDS", "AttentionPlan", "GatherPlan", "PanelPlan",
-           "SMEM_PER_BLOCK", "attention_plan", "gather_plan", "panel_plan"]
+           "SMEM_PER_BLOCK", "SpmvPlan", "attention_plan", "gather_plan",
+           "panel_plan", "spmv_plan"]
 
 #: Dynamic shared memory one block may use on Hopper (H100, H200).
 SMEM_PER_BLOCK = 232448
 GRID_Y_MAX = 65535
 GATHER_THREADS = 256      # a block's threads: a 4 KB slab of 16-byte units
 GATHER_MAX_UNITS = 1 << 30  # the kernel indexes a row's units in 32 bits
+SPMV_THREADS = 256        # spmv_ell_kernel's block (its __launch_bounds__)
 PANEL_ROUTES = ("bulk", "cp.async")
 PANEL_TILE_BYTES = 16384  # vals + cols bytes a tile aims at
 DECODE_SPAN = 32          # context positions a decode block walks
@@ -122,6 +132,52 @@ def gather_plan(row_bytes: int, align: int, count: int) -> GatherPlan:
 
 def _align16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@dataclass(frozen=True)
+class SpmvPlan:
+    vec: int          # entries of vals and of cols a load: 4 or 1
+    lanes: int        # lanes a row: a power of two, at most 32
+    threads: int
+    blocks: int
+
+    @property
+    def route(self) -> str:
+        return f"{self.vec}-entry loads, {self.lanes} lanes a row"
+
+    def lane_entries(self, k: int, lane: int):
+        """The entries of a row of K = ``k`` that ``lane`` sums, in the
+        kernel's order (load, then entry of the load)."""
+        return [e for i in range(lane, k // self.vec, self.lanes)
+                for e in range(i * self.vec, (i + 1) * self.vec)]
+
+    def block_rows(self, b: int, rows: int) -> range:
+        """The rows that block ``b`` computes (the rest of it is masked)."""
+        per = self.threads // self.lanes
+        return range(min(b * per, rows), min((b + 1) * per, rows))
+
+
+def spmv_plan(rows: int, k: int, aligned: bool) -> SpmvPlan:
+    """The plan for ``rows`` rows of K = ``k`` entries; ``aligned``: vals
+    and cols both start on 16 bytes.  K = 0 gives zeros.  Raises where the
+    grid would exceed the card's 2**31 - 1 blocks or a size is negative."""
+    if rows < 0 or k < 0:
+        raise ValueError(f"spmv_ell: no plan for {rows} rows of K = {k}")
+    vec = 4 if aligned and k % 4 == 0 and k > 0 else 1
+    loads = k // vec
+    lanes = min(32, _pow2_at_least(loads))
+    blocks = -(-rows * lanes // SPMV_THREADS)
+    if blocks > 2**31 - 1:
+        raise ValueError(f"spmv_ell: {rows} rows need {blocks} blocks, more "
+                         f"than the card's 2**31 - 1")
+    return SpmvPlan(vec=vec, lanes=lanes, threads=SPMV_THREADS, blocks=max(blocks, 1))
 
 
 @dataclass(frozen=True)

@@ -35,6 +35,8 @@ __all__ = [
     "speculative_accept",
     "paged_kv_append",
     "paged_kv_write_chunk",
+    "paged_kv_destinations",
+    "paged_kv_write",
     "int8_quantize",
     "quantize_kv",
     "dequantize_pages",
@@ -436,7 +438,7 @@ def speculative_accept(drafts: torch.Tensor, greedy: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Paged KV writes (full-pool oracles; ops.py composes the converters)
+# Paged KV writes: the full-pool oracles, and the write kernel's plain version
 # ---------------------------------------------------------------------------
 
 
@@ -454,11 +456,12 @@ def paged_kv_append(
     """Append one KV token per sequence into the paged pool, in place.
 
     Sequence ``b`` writes its row to ``(page_table[b, len_b // page],
-    len_b % page)``.  Inactive sequences, and appends that fall past the
-    table row, write nothing; inactive ones keep their length.  With the
-    ``(P, page, KVH)`` scale pools given, rows are quantized on write
-    (:func:`quantize_kv`): codes into the pages, scales into the scale
-    pools at the same slots.
+    len_b % page)``.  Inactive sequences (``active`` bool, or 0/1 ints),
+    appends that fall past the table row and page ids of ``P`` or more
+    write nothing (a negative id wraps, as in the reference); inactive ones
+    keep their length.  With the ``(P, page, KVH)`` scale pools given, rows
+    are quantized on write (:func:`quantize_kv`): codes into the pages,
+    scales into the scale pools at the same slots.
 
     Returns ``(k_pages, v_pages, new_lengths)``, plus ``(k_scale,
     v_scale)`` when quantizing.
@@ -472,9 +475,10 @@ def paged_kv_append(
     lens = lengths.long()
     if active is None:
         active = torch.ones_like(lens, dtype=torch.bool)
-    keep = active & (lens < n_pages * page)
+    active = active.bool()
     slot = (lens // page).clamp(0, n_pages - 1)
     pids = page_table.long().gather(1, slot[:, None])[:, 0]
+    keep = active & (lens < n_pages * page) & (pids < p)
     flat = (pids * page + lens % page)[keep]
     k_pages.view(p * page, kvh, d)[flat] = k_new[keep]
     v_pages.view(p * page, kvh, d)[flat] = v_new[keep]
@@ -501,9 +505,12 @@ def paged_kv_write_chunk(
 
     Sequence ``r`` writes its ``counts[r]`` leading rows of ``k_new[r]`` /
     ``v_new[r]`` (each ``(C, KVH, D)``) at positions ``starts[r] + c``
-    through its page-table row ``rows[r]``; rows with ``counts == 0`` write
-    nothing.  Quantizes on write when the scale pools are given.  Returns
-    ``(k_pages, v_pages)``, plus ``(k_scale, v_scale)`` when quantizing.
+    through its page-table row ``rows[r]``; rows with ``counts == 0``, and
+    page ids of ``P`` or more, write nothing.  A position past the table
+    row takes its last entry, as the reference's oracle does (the kernel
+    drops it: :func:`paged_kv_write`).  Quantizes on write when the scale
+    pools are given.  Returns ``(k_pages, v_pages)``, plus ``(k_scale,
+    v_scale)`` when quantizing.
     """
     p, page, kvh, d = k_pages.shape
     r, c = k_new.shape[:2]
@@ -514,8 +521,9 @@ def paged_kv_write_chunk(
         v_new, v_s = quantize_kv(v_new)
     ar = torch.arange(c, device=rows.device)
     pos = starts.long()[:, None] + ar                          # (R, C)
-    valid = (ar[None, :] < counts.long()[:, None]).reshape(-1)
     pids = rows.long().gather(1, (pos // page).clamp(0, n_pages - 1))
+    valid = ((ar[None, :] < counts.long()[:, None])
+             & (pids < p)).reshape(-1)
     flat = (pids * page + pos % page).reshape(-1)[valid]
     k_pages.view(p * page, kvh, d)[flat] = k_new.reshape(-1, kvh, d)[valid]
     v_pages.view(p * page, kvh, d)[flat] = v_new.reshape(-1, kvh, d)[valid]
@@ -526,16 +534,81 @@ def paged_kv_write_chunk(
     return k_pages, v_pages
 
 
+def paged_kv_destinations(rows: torch.Tensor, starts: torch.Tensor,
+                          counts: torch.Tensor, chunk: int, page: int,
+                          pool_pages: int) -> torch.Tensor:
+    """``(R, C)`` flat pool row (``pid * page + pos % page``) of each token
+    ``(r, c)`` of a paged write at ``pos = starts[r] + c``, or -1 where the
+    token is dropped: ``c >= counts[r]``, ``pos`` outside ``[0, n_pages *
+    page)``, or the page id ``rows[r, pos // page]`` outside ``[0,
+    pool_pages)`` — the rule the write kernel applies in each warp."""
+    n_pages = rows.shape[1]
+    ar = torch.arange(chunk, device=rows.device)
+    pos = starts.long()[:, None] + ar
+    pids = rows.long().gather(1, (pos // page).clamp(0, n_pages - 1))
+    keep = ((ar[None, :] < counts.long()[:, None]) & (pos >= 0)
+            & (pos < n_pages * page) & (pids >= 0) & (pids < pool_pages))
+    return torch.where(keep, pids * page + pos % page, -1)
+
+
+def paged_kv_write(
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    rows: torch.Tensor,
+    starts: torch.Tensor,
+    counts: torch.Tensor,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """The paged K/V write kernel's plain version, in place.
+
+    Token ``(r, c)`` of ``k_new`` / ``v_new`` ``(R, C, KVH, D)`` goes
+    straight to its pool row (:func:`paged_kv_destinations`); dropped
+    tokens write nothing.  An append is ``C = 1`` with ``lengths`` as
+    ``starts`` and ``active`` as ``counts``.  With the scale pools given
+    the rows are quantized on write (:func:`quantize_kv`).  Returns the
+    pools it was given.
+    """
+    p, page, kvh, d = k_pages.shape
+    r, c = k_new.shape[:2]
+    dest = paged_kv_destinations(rows, starts, counts, c, page, p).reshape(-1)
+    keep = dest >= 0
+    flat = dest[keep]
+    kn = k_new.reshape(-1, kvh, d)[keep]
+    vn = v_new.reshape(-1, kvh, d)[keep]
+    if k_scale is not None:
+        kn, ks = quantize_kv(kn)
+        vn, vs = quantize_kv(vn)
+        k_scale.view(p * page, kvh)[flat] = ks
+        v_scale.view(p * page, kvh)[flat] = vs
+    k_pages.view(p * page, kvh, d)[flat] = kn
+    v_pages.view(p * page, kvh, d)[flat] = vn
+    if k_scale is not None:
+        return k_pages, v_pages, k_scale, v_scale
+    return k_pages, v_pages
+
+
 # ---------------------------------------------------------------------------
 # Int8 KV quantization
 # ---------------------------------------------------------------------------
 
+#: The float32 reciprocal of 127 (``1.0f / 127.0f``), held exactly.
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
 
 def int8_quantize(x: torch.Tensor, dim: int = -1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-slice int8 quantization: returns (codes, scale)."""
+    """Symmetric per-slice int8 quantization: returns (codes, scale).
+
+    The scale is ``amax * INV_127``, a multiply by the float32 reciprocal
+    of 127, on every device: that is what the reference computes where it
+    runs, under ``jax.jit`` (XLA rewrites ``amax / 127.0`` as that
+    multiply), and what the paged K/V write kernel computes.  An unjitted
+    ``amax / 127.0`` can round the scale one bit away."""
     amax = x.abs().amax(dim=dim, keepdim=True)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax)).float()
+    scale = torch.where(amax > 0, amax * INV_127, torch.ones_like(amax)).float()
     q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 

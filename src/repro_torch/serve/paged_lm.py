@@ -2,10 +2,12 @@
 
 The port's ``repro.serve.paged_lm``.  :class:`PagedLM` runs the decode and
 chunked-prefill steps through the dispatch layer
-(:mod:`repro_torch.kernels.ops`):
-``paged_kv_append`` / ``paged_kv_write_chunk`` over the indirect
-scatter/gather kernels for every K/V write, and the paged decode / prefill
-attention kernels for every layer.  The projections ``x @ W`` and the
+(:mod:`repro_torch.kernels.ops`): ``paged_kv_write`` (a decode step's
+append) and ``paged_kv_write_chunk`` launch the paged K/V write kernel
+once a layer for every K/V write, and the paged decode / prefill attention
+kernels run every layer.  What the kernels read of the step's tables
+(int32 page table, lengths, active flags, starts and counts) is made once
+a step and passed to every layer.  The projections ``x @ W`` and the
 logits ``x @ embed.T`` stay ``torch.matmul``, as the reference left them
 to XLA.  :class:`PagedFamily` is the scheduler-facing
 :class:`~repro_torch.serve.family.ServableFamily`.
@@ -108,18 +110,22 @@ def _decode_step(params, tokens, k_pages, v_pages, k_scale, v_scale,
     b = tokens.shape[0]
     quantized = k_scale is not None
     x = params["embed"][tokens.long()]                       # (B, d)
+    table = page_table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32)
+    act = active.to(torch.int32)
     new_len = lengths + active.to(lengths.dtype)
+    new_len32 = new_len.to(torch.int32)
     for l in range(n_layers):
         q = (x @ params["wq"][l]).view(b, h, hd)
         kn = (x @ params["wk"][l]).view(b, kvh, hd)
         vn = (x @ params["wv"][l]).view(b, kvh, hd)
         ks, vs = (k_scale[l], v_scale[l]) if quantized else (None, None)
-        kops.paged_kv_append(
-            k_pages[l], v_pages[l], kn, vn, page_table, lengths, active,
-            k_scale=ks, v_scale=vs, impl=impl,
+        kops.paged_kv_write(  # the append: a chunk of one token
+            k_pages[l], v_pages[l], kn[:, None], vn[:, None], table, lens,
+            act, k_scale=ks, v_scale=vs, impl=impl,
         )
         attn = kops.paged_decode_attention(
-            q, k_pages[l], v_pages[l], page_table, new_len,
+            q, k_pages[l], v_pages[l], table, new_len32,
             k_scale=ks, v_scale=vs, impl=impl,
         )
         x = x + attn.reshape(b, h * hd) @ params["wo"][l]
@@ -143,8 +149,9 @@ def _prefill_batch(params, tokens, counts, seqs, starts, k_pages, v_pages,
     r, c = tokens.shape
     quantized = k_scale is not None
     x = params["embed"][tokens.long()]                       # (R, C, d)
-    rows = page_table[seqs.long()]                           # (R, n_pages)
+    rows = page_table[seqs.long()].to(torch.int32)           # (R, n_pages)
     ctx_rows = rows[:, :ctx_pages].contiguous()
+    starts, counts = starts.to(torch.int32), counts.to(torch.int32)
     for l in range(n_layers):
         kn = _per_row(x, params["wk"][l]).view(r, c, kvh, hd)
         vn = _per_row(x, params["wv"][l]).view(r, c, kvh, hd)
@@ -178,22 +185,25 @@ def _verify_step(params, q_tokens, k_pages, v_pages, k_scale, v_scale,
     q_tokens (B, K) int32: the feed token, then the drafts; row ``b``'s
     token ``i`` sits at position ``lengths[b] + i``.  ``counts`` (B,)
     bounds the valid tokens per row (0..K; 0 = inactive, touches nothing).
-    Each layer writes the chunk's K/V through the chunk-bounded indirect
-    write, then :func:`~repro_torch.kernels.ops.paged_verify` scores all K
-    causal queries in one page walk.  Lengths are not advanced here: the
-    accept step owns that, since only accepted tokens survive.
+    Each layer writes the chunk's K/V through the chunk write (one paged
+    K/V write launch), then :func:`~repro_torch.kernels.ops.paged_verify`
+    scores all K causal queries in one page walk.  Lengths are not
+    advanced here: the accept step owns that, since only accepted tokens
+    survive.
     """
     n_layers = params["wq"].shape[0]
     b, k = q_tokens.shape
     quantized = k_scale is not None
     x = params["embed"][q_tokens.long()]                     # (B, K, d)
-    ctx_rows = page_table[:, :ctx_pages].contiguous()
+    table = page_table.to(torch.int32).contiguous()
+    ctx_rows = table[:, :ctx_pages].contiguous()
+    lengths, counts = lengths.to(torch.int32), counts.to(torch.int32)
     for l in range(n_layers):
         kn = (x @ params["wk"][l]).view(b, k, kvh, hd)
         vn = (x @ params["wv"][l]).view(b, k, kvh, hd)
         ks, vs = (k_scale[l], v_scale[l]) if quantized else (None, None)
         kops.paged_kv_write_chunk(
-            k_pages[l], v_pages[l], kn, vn, page_table, lengths, counts,
+            k_pages[l], v_pages[l], kn, vn, table, lengths, counts,
             k_scale=ks, v_scale=vs, impl=impl,
         )
         q = (x @ params["wq"][l]).view(b, k, h, hd)

@@ -20,6 +20,7 @@ PyTorch version.  The tests marked ``cuda`` hold the CUDA kernels against
 those plain versions on the GPU and skip where there is none; run them on
 the card with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
+import functools
 import zlib
 
 import numpy as np
@@ -59,14 +60,18 @@ ATOL = RTOL = 1e-5
 def jx():
     """The JAX reference (``jnp``, ``ops``, ``ref``); imported here rather
     than at the top so the card's tests run where JAX is not installed."""
-    jnp = pytest.importorskip("jax.numpy")
+    jax = pytest.importorskip("jax")
     from repro.kernels import ops as jops, ref as jref
 
     class JX:
         pass
 
     ns = JX()
-    ns.a, ns.ops, ns.ref = jnp.asarray, jops, jref
+    ns.a, ns.ops, ns.ref = jax.numpy.asarray, jops, jref
+    # The reference quantizes int8 K/V under jax.jit, as its engine runs
+    # it: XLA computes the scale amax / 127 as amax * (1 / 127), and so
+    # does the port (ref.int8_quantize).
+    ns.jit = lambda fn, **static: jax.jit(functools.partial(fn, **static))
     return ns
 
 
@@ -198,10 +203,10 @@ def test_paged_kv_append_bitwise_vs_jax(jx, impl, quantized):
         _t(lengths), _t(active),
         **_scales(ks, vs, lambda a: _t(a).clone()), impl=impl,
     )
-    want = jx.ops.paged_kv_append(
+    want = jx.jit(jx.ops.paged_kv_append, impl="ref")(
         jx.a(kp), jx.a(vp), jx.a(k_new),
         jx.a(v_new), jx.a(table), jx.a(lengths),
-        jx.a(active), **_scales(ks, vs, jx.a), impl="ref",
+        jx.a(active), **_scales(ks, vs, jx.a),
     )
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -225,10 +230,10 @@ def test_paged_kv_write_chunk_bitwise_vs_jax(jx, impl, quantized):
         _t(starts), _t(counts),
         **_scales(ks, vs, lambda a: _t(a).clone()), impl=impl,
     )
-    want = jx.ops.paged_kv_write_chunk(
+    want = jx.jit(jx.ops.paged_kv_write_chunk, impl="ref")(
         jx.a(kp), jx.a(vp), jx.a(k_new),
         jx.a(v_new), jx.a(rows), jx.a(starts),
-        jx.a(counts), **_scales(ks, vs, jx.a), impl="ref",
+        jx.a(counts), **_scales(ks, vs, jx.a),
     )
     assert len(got) == len(want)
     for g, w in zip(got, want):
@@ -236,17 +241,19 @@ def test_paged_kv_write_chunk_bitwise_vs_jax(jx, impl, quantized):
 
 
 def test_paged_writes_never_repeat_a_live_scatter_index(monkeypatch):
-    """The scatter kernel leaves duplicate in-range indices in no defined
-    order; the paged writes must therefore never issue one."""
+    """The write kernel leaves repeated destinations in no defined order;
+    the paged writes must therefore never produce one (the destinations
+    its plain version computes, :func:`ref.paged_kv_destinations`, are the
+    kernel's)."""
     seen = []
-    real = ops.indirect_scatter
+    real = ref.paged_kv_destinations
 
-    def spy(dst, packed, indices, impl="cuda"):
-        idx = indices.long()
-        seen.append(idx[(idx >= 0) & (idx < dst.shape[0])].tolist())
-        return real(dst, packed, indices, impl=impl)
+    def spy(*args):
+        dest = real(*args)
+        seen.append(dest[dest >= 0].tolist())
+        return dest
 
-    monkeypatch.setattr(ops, "indirect_scatter", spy)
+    monkeypatch.setattr(ref, "paged_kv_destinations", spy)
     rng = _rng("dups")
     kvh, d = 2, 8
     for quantized in (False, True):
@@ -266,7 +273,8 @@ def test_paged_writes_never_repeat_a_live_scatter_index(monkeypatch):
             _t(np.array([0, 3, 9, 14], np.int32)),
             _t(np.array([8, 8, 0, 2], np.int32)), **sc,
         )
-    assert len(seen) == (2 + 4) + (4 + 8)  # fp32 then int8 pools
+    assert len(seen) == 2 + 2  # an append and a chunk, fp32 then int8 pools
+    assert [len(idx) for idx in seen] == [2, 18, 2, 18]
     for idx in seen:
         assert len(idx) == len(set(idx)), idx
 
@@ -282,7 +290,7 @@ def test_quantize_kv_bitwise_vs_jax(jx, shape):
     x = (rng.standard_normal(shape) * rng.uniform(0.01, 10)).astype(np.float32)
     x[0, 0] = 0.0  # an all-zero (token, head) slice takes scale 1
     q, s = ref.quantize_kv(_t(x))
-    jq, js = jx.ref.quantize_kv(jx.a(x))
+    jq, js = jx.jit(jx.ref.quantize_kv)(jx.a(x))
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
     deq = ref.dequantize_pages(q, s)
@@ -491,5 +499,3 @@ def test_indirect_gather_routes_bitwise_on_card(cuda, case):
     assert ops.indirect_gather.launches == 1
     assert ops.indirect_gather.plan.unit == unit
     assert torch.equal(got, ref.indirect_gather(src, idx))
-    before = ops.indirect_gather_before(src, idx)
-    assert torch.equal(before, got) and ops.indirect_gather.launches == 1

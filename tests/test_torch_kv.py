@@ -7,6 +7,7 @@ shadows) must be identical and the device pools (codes and, in int8 mode,
 scales) bitwise equal.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -23,19 +24,23 @@ GEOMETRY = dict(batch=3, max_len=16, page=4, pool_pages=10)
 
 @pytest.fixture(scope="module")
 def jx():
-    jnp = pytest.importorskip("jax.numpy")
+    jax = pytest.importorskip("jax")
     from repro.configs import smoke_config as jax_smoke
     from repro.kernels import ops as jops
     from repro.serve import PagedKVCache as JaxCache
 
-    return jnp, jops, JaxCache, jax_smoke("yi-6b")
+    # The reference's chunk write under jax.jit, as its engine runs it
+    # (XLA computes the int8 scale amax / 127 as amax * (1 / 127), and so
+    # does the port).
+    write = jax.jit(functools.partial(jops.paged_kv_write_chunk, impl="ref"))
+    return jax.numpy, write, JaxCache, jax_smoke("yi-6b")
 
 
 class Pair:
     """A JAX cache and a port cache driven through the same operations."""
 
     def __init__(self, jx, kv_dtype):
-        self.jnp, self.jops, jax_cache, jcfg = jx
+        self.jnp, self.jwrite, jax_cache, jcfg = jx
         self.j = jax_cache.create(jcfg, kv_dtype=kv_dtype, **GEOMETRY)
         self.t = PagedKVCache.create(CFG, kv_dtype=kv_dtype, device="cpu",
                                      **GEOMETRY)
@@ -75,10 +80,10 @@ class Pair:
         for l in range(CFG.n_layers):
             sc = (dict(k_scale=j.k_scale[l], v_scale=j.v_scale[l])
                   if j.k_scale is not None else {})
-            outs.append(self.jops.paged_kv_write_chunk(
+            outs.append(self.jwrite(
                 j.k_pages[l], j.v_pages[l], jnp.asarray(kn[l]),
                 jnp.asarray(vn[l]), jnp.asarray(row), jnp.asarray(st),
-                jnp.asarray(ct), impl="ref", **sc))
+                jnp.asarray(ct), **sc))
             tsc = (dict(k_scale=t.k_scale[l], v_scale=t.v_scale[l])
                    if t.quantized else {})
             ops.paged_kv_write_chunk(

@@ -1,8 +1,11 @@
-"""The host-side launch plans of the indirect gather and the panel SpMV
-(``repro_torch.kernels.plans``), checked as plain Python.
+"""The host-side launch plans of the indirect gather, the ELL SpMV and the
+panel SpMV (``repro_torch.kernels.plans``), checked as plain Python.
 
 Every gather plan must cover each byte of each row exactly once, in units
-that the row length and the pointers allow; every panel plan must cover
+that the row length and the pointers allow; every ELL SpMV plan must give
+each entry of a row to exactly one lane and each row to one block, with
+16-byte loads exactly where K and the alignment allow; every panel plan
+must cover
 each row exactly once, keep a tile inside its row block where it splits
 one, take the bulk route exactly where its copies can serve the call, and
 fit a block's shared memory, or raise naming shared memory.  The kernels follow the same arithmetic on the card
@@ -15,7 +18,7 @@ import pytest
 
 from repro_torch.kernels import plans
 from repro_torch.kernels.plans import (SMEM_PER_BLOCK, gather_plan,
-                                       panel_plan)
+                                       panel_plan, spmv_plan)
 
 # ---------------------------------------------------------------------------
 # Gather
@@ -87,6 +90,76 @@ def test_gather_plan_at_the_paged_path_shapes(row_bytes, threads, slabs):
     and 256 B (scales), one unit a thread, every slab its own block."""
     plan = gather_plan(row_bytes, 0, 24)
     assert (plan.threads, plan.slabs, plan.grid_y) == (threads, slabs, slabs)
+
+
+# ---------------------------------------------------------------------------
+# ELL SpMV
+# ---------------------------------------------------------------------------
+
+SPMV_KS = [0, 1, 3, 4, 5, 8, 32, 33, 64, 1000, 1024]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("k", SPMV_KS)
+def test_spmv_plan_covers_each_entry_once(k, aligned):
+    """Every entry of a row goes to exactly one lane, each lane's entries
+    in increasing order; 16-byte loads exactly where K % 4 == 0 and both
+    operands are aligned; a load a lane where possible."""
+    plan = spmv_plan(1000, k, aligned)
+    assert plan.vec == (4 if aligned and k % 4 == 0 and k else 1)
+    assert plan.lanes in (1, 2, 4, 8, 16, 32)
+    entries = [plan.lane_entries(k, lane) for lane in range(plan.lanes)]
+    assert sorted(e for lane in entries for e in lane) == list(range(k))
+    for lane in entries:
+        assert lane == sorted(lane)
+        # Whole loads, and every load of a lane at a vec-aligned entry.
+        assert len(lane) % plan.vec == 0
+        assert all(e % plan.vec == 0 for e in lane[::plan.vec])
+    # A load a lane where the row allows it: no fewer lanes than loads
+    # below 32, and no lane without a load.
+    loads = k // plan.vec
+    assert plan.lanes == 32 or plan.lanes >= loads
+    assert plan.lanes // 2 < max(loads, 1)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 63, 64, 65, 1000, 4099])
+@pytest.mark.parametrize("k,aligned", [(1, True), (5, False), (32, True),
+                                       (33, True), (1024, True)])
+def test_spmv_plan_covers_each_row_once(rows, k, aligned):
+    plan = spmv_plan(rows, k, aligned)
+    assert plan.threads == plans.SPMV_THREADS
+    assert plan.threads % plan.lanes == 0
+    spans = [plan.block_rows(b, rows) for b in range(plan.blocks)]
+    assert _covers_once([(r.start, r.stop) for r in spans if len(r)], rows)
+    assert len(spans[-1]) > 0  # no block without a row
+
+
+def test_spmv_plan_at_the_workload_shape():
+    """2**22 rows of K = 32: 8 lanes a row, one float4 of vals and cols a
+    lane, so a warp's load reads four whole 128-byte rows."""
+    plan = spmv_plan(1 << 22, 32, True)
+    assert (plan.vec, plan.lanes) == (4, 8)
+    assert plan.blocks == (1 << 22) * 8 // 256
+    assert plan.lane_entries(32, 1) == [4, 5, 6, 7]
+    # K = 256 and K = 33 take two loads a lane, 32 lanes apart.
+    assert spmv_plan(8, 256, True).lane_entries(256, 0) == [
+        0, 1, 2, 3, 128, 129, 130, 131]
+    assert spmv_plan(8, 33, True).lanes == 32
+    assert spmv_plan(8, 33, True).lane_entries(33, 0) == [0, 32]
+
+
+@pytest.mark.parametrize("rows,k", [(-1, 4), (8, -1), (1 << 40, 32)])
+def test_spmv_plan_refuses_negative_sizes_and_oversized_grids(rows, k):
+    with pytest.raises(ValueError, match="spmv_ell"):
+        spmv_plan(rows, k, True)
+
+
+def test_spmv_plan_of_empty_rows_sums_nothing():
+    """K = 0 (rows of no entries) has a plan, whose lanes load nothing: the
+    kernel writes zeros, as the plain version's empty sums."""
+    plan = spmv_plan(7, 0, True)
+    assert (plan.vec, plan.lanes) == (1, 1)
+    assert plan.lane_entries(0, 0) == []
 
 
 # ---------------------------------------------------------------------------

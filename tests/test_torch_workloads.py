@@ -473,10 +473,56 @@ def test_spmv_panel_routes_on_card(cuda, case):
     want = ref.spmv_ell_panel(args["vals"], args["cols"], args["x"], pids,
                               panel=512)
     torch.testing.assert_close(got, want, **TOL)
-    torch.testing.assert_close(
-        ops.spmv_ell_panel_before(args["vals"], args["cols"], args["x"],
-                                  pids, panel=512), want, **TOL)
-    assert ops.spmv_ell_panel_kernel.launches == 1
+
+
+SPMV_CARD_KS = [1, 3, 4, 5, 8, 32, 33, 100, 256, 264]
+
+
+def _spmv_card_case(cuda, k, offset):
+    r, c = 1000, 4099
+    vals, cols, x = (_torch(a).to(cuda) for a in _ell(
+        _rng("card-spmv-plan", k, offset), r, k, c, lo=-9, hi=c + 9))
+    return vals, _offset(cols, offset), x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SPMV_CARD_KS)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "cols off 4 B"])
+def test_spmv_plans_on_card(cuda, k, offset):
+    """Each SpMV plan within TOL of the plain version, with columns below
+    and past x (clipped), ragged K and cols off 16-byte alignment (the
+    1-entry loads), and K = 100, 256 and 264 (several loads a lane); one
+    launch a call, by the plan the wrapper keeps."""
+    vals, cols, x = _spmv_card_case(cuda, k, offset)
+    ops.reset_launch_counts()
+    got = ops.spmv_ell(vals, cols, x)
+    torch.cuda.synchronize()
+    assert ops.spmv_ell.launches == 1
+    assert ops.spmv_ell.plan.vec == (4 if k % 4 == 0 and not offset else 1)
+    torch.testing.assert_close(got, ref.spmv_ell(vals, cols, x), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SPMV_CARD_KS + [1000])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "cols off 4 B"])
+def test_spmv_on_card_within_the_fp32_bound_of_a_float64_sum(cuda, k,
+                                                              offset):
+    """The kernel and the plain version, each against the row sums taken
+    in float64, within the forward error bound of fp32 summation in any
+    order, (K + 1) * 2**-24 * sum|v * x| a row.  This holds rows of any
+    length, K = 1000 too, where TOL's absolute 1e-5 (set for rows of tens
+    of entries, like the workload's K = 32) is below the rounding of a
+    thousand fp32 terms in either order."""
+    vals, cols, x = _spmv_card_case(cuda, k, offset)
+    terms = vals.double() * x.double()[cols.long().clamp(0, x.numel() - 1)]
+    want = terms.sum(1)
+    bound = (k + 1) * 2.0**-24 * terms.abs().sum(1)
+    for name, got in (("kernel", ops.spmv_ell(vals, cols, x)),
+                      ("plain", ref.spmv_ell(vals, cols, x))):
+        err = (got.double() - want).abs()
+        assert bool((err <= bound).all()), (
+            f"{name}: worst row {int((err - bound).argmax())} off by "
+            f"{err.max().item():.3e}")
 
 
 @pytest.mark.cuda

@@ -4,15 +4,18 @@ Run from the root of a checkout, on one NVIDIA GPU::
 
     PYTHONPATH=src:. python tools/serving_ab.py [--root DIR] [--label NAME]
 
-``--root`` names the checkout whose ``src/`` and ``chip_smoke.py`` are
-imported (default: this one), so two versions can be compared in one call
-on one card, in turns (parent, change, change, parent), each in its own
-process.  It prints one JSON line: the card's name and power limit; the
-paged decode, prefill and verify kernels at ``chip_smoke.py``'s shapes
-(fp32 and int8 pools: event and profiler device time a call, median of
-25); the isolated prefill and decode throughput of ``chip_smoke.py``'s
-throughput phase (full-width yi-6b, batch 8, fp32 pools); and the
-``spec_k = 4`` fp32 scheduler run's tokens/s.
+``--root`` names the checkout whose ``src/repro_torch`` is imported
+(default: this one), so two versions can be compared in one call on one
+card, in turns (parent, change, change, parent), each in its own process;
+the shapes, the timing and the runs come from this checkout's
+``chip_smoke.py``.  It prints one JSON line: the card's name and power
+limit; the paged decode, prefill and verify kernels at ``chip_smoke.py``'s
+shapes (fp32 and int8 pools: event and profiler device time a call,
+median of 25); the isolated prefill and decode throughput of
+``chip_smoke.py``'s throughput phase (full-width yi-6b, batch 8, fp32
+pools) with the step's wall and device time and the profiler's kernel
+count of one decode step and one prefill chunk; and the ``spec_k = 4``
+fp32 scheduler run's tokens/s.
 """
 from __future__ import annotations
 
@@ -23,13 +26,16 @@ import sys
 from pathlib import Path
 
 
+HERE = Path(__file__).resolve().parents[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default=None)
     args = ap.parse_args()
     root = Path(args.root).resolve()
-    sys.path[:0] = [str(root / "src"), str(root)]
+    sys.path[:0] = [str(root / "src"), str(HERE)]
     import numpy as np
     import torch
 
@@ -90,6 +96,11 @@ def main() -> int:
         decode_tokens_per_s=tp["decode_tokens_per_s"],
         decode_step_device_ms=tp["decode_step_device_ms"],
         decode_step_wall_ms=tp["decode_step_wall_ms"],
+        **{k: tp[k] for k in ("decode_step_kernels", "decode_step_busy_ms",
+                              "prefill_chunk_kernels",
+                              "prefill_chunk_busy_ms",
+                              "launches_per_decode_step",
+                              "launches_per_prefill_step")},
         spec_fp32_tokens_per_s=sched.stats.tokens / secs)))
     return 0
 

@@ -1,18 +1,24 @@
-"""The indirect gather and the panel SpMV on the card: routes, slab sizes
-and the library calls, timed in turns.
+"""The indirect gather and the two SpMVs on the card: routes, plans and the
+library calls, timed in turns.
 
 At ``chip_smoke.py``'s shapes (the gather: 24 rows from 256 of 32 KB (fp32
-pages), 8 KB (int8 codes) and 256 B (int8 scales), the prefill window
-reads; the panel SpMV: 2**20 rows, K = 32 in 4 steps, panel 512, row
-blocks of 64, C = 2**22) it times, with CUDA events and with the
-profiler's device time (``chip_smoke.time_ms`` / ``profile_ms``):
+pages), 8 KB (int8 codes) and 256 B (int8 scales); the ELL SpMV: the
+workload's 2**22 rows, K = 32, Poisson(24) live entries, C = 2**22; the
+panel SpMV: 2**20 rows, K = 32 in 4 steps, panel 512, row blocks of 64,
+C = 2**22) it times, with CUDA events and with the profiler's device time
+(``chip_smoke.time_ms`` / ``profile_ms``):
 
 * the gather by its own plan, then by plans built here (``plans.GatherPlan``
   launched through ``ops._gather_launch``): 16-byte units with blocks of
-  64 to 1024 threads (slabs of 1-16 KB), and 4-byte units with 256; its
-  first design, ``index_select`` and the launch floor (one 16-byte row);
+  64 to 1024 threads (slabs of 1-16 KB), and 4-byte units with 256;
+  ``index_select`` and the launch floor (one 16-byte row);
+* the ELL SpMV by its own plan and by plans built here
+  (``plans.SpmvPlan`` through ``ops._spmv_launch``: 2 to 32 lanes a row
+  with 16-byte loads, so 4 to 1 loads a lane, and 4-byte loads with 8 and
+  32 lanes) and the cuSPARSE CSR matvec (``tools/spmv_ab.py`` has the
+  x-size sweep and the row-local matrix);
 * the panel SpMV on the bulk route and on the cp.async route (x 4 bytes
-  off alignment), its first design and the cuSPARSE CSR matvec;
+  off alignment) and the cuSPARSE CSR matvec;
 * each default kernel and its library call in turns (kernel, library,
   library, kernel; three rounds), which is how two µs-scale calls compare.
 
@@ -78,9 +84,6 @@ def gather_shape(src, idx):
         cs.require(torch.equal(forced(plan), want),
                    f"gather {name}: not bitwise")
         res[name] = both(lambda: forced(plan))
-    before = lambda: ops.indirect_gather_before(src, idx)
-    cs.require(torch.equal(before(), want), "gather first design: not bitwise")
-    res["first design"] = both(before)
     res["index_select"] = both(library)
     res["in turns with index_select"] = in_turns(kernel, library)
     return res
@@ -101,6 +104,32 @@ def gather_times(dev, gen):
     return res
 
 
+def spmv_times(dev, gen):
+    """The ELL SpMV at the workload's size by each plan, and beside
+    cuSPARSE in turns."""
+    graph = cs.make_graph(dev)
+    vals, cols, live, x = (graph[k] for k in ("vals", "cols", "live", "x"))
+    del graph
+    want = ref.spmv_ell(vals, cols, x)
+    kernel = lambda: ops.spmv_ell(vals, cols, x)
+    cs.require(torch.allclose(kernel(), want, **cs.TOL), "spmv: over TOL")
+    default = ops.spmv_ell.plan
+    res = {"live_entries": int(live.sum()),
+           "default plan": dict(both(kernel), route=default.route)}
+    for vec, lanes in ((4, 2), (4, 4), (4, 16), (4, 32), (1, 8), (1, 32)):
+        plan = replace(default, vec=vec, lanes=lanes,
+                       blocks=-(-vals.shape[0] * lanes // default.threads))
+        y = torch.empty_like(want)
+        run = lambda: ops._spmv_launch(vals, cols, x, y, plan)
+        run()
+        cs.require(torch.allclose(y, want, **cs.TOL),
+                   f"spmv {plan.route}: over TOL")
+        res[plan.route] = both(run)
+    csr = cs.csr_of(vals, cols, live, x.numel())
+    res["in turns with cuSPARSE"] = in_turns(kernel, lambda: torch.mv(csr, x))
+    return res
+
+
 def panel_times(dev, gen):
     x = torch.rand(cs.SPMV_R, generator=gen, device=dev) * 2 - 1
     x_off = cs.offset_copy(x, 4)
@@ -112,8 +141,6 @@ def panel_times(dev, gen):
     run = {xname: (lambda xv=xv: ops.spmv_ell_panel_kernel(
         vals, cols, xv, pids, panel=cs.PANEL))
         for xname, xv in (("x aligned", x), ("x at +4 B", x_off))}
-    run["first design"] = lambda: ops.spmv_ell_panel_before(
-        vals, cols, x, pids, panel=cs.PANEL)
     run["cuSPARSE CSR matvec"] = lambda: torch.mv(csr, x)
     res = {}
     for name, fn in run.items():
@@ -135,6 +162,7 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     print(json.dumps({"card": smi, "gather": gather_times(dev, gen),
+                      "spmv": spmv_times(dev, gen),
                       "panel": panel_times(dev, gen)}))
 
 
