@@ -36,6 +36,16 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    (median of 25); the gather, ``index_select``, the paged K/V write and
    the launch floor (a one-row gather of 16 bytes) also by the profiler's
    device time, since an event-timed call of a few µs sits on the floor.
+   The indirect scatter and gather also at the MoE training microbatch's
+   shape (olmoe-1b-7b, 2 x 4096 tokens, top-8 of 64: 65,536 bf16 rows of
+   4 KB into and out of 81,920 slots, the dropped assignments' sentinel
+   included), bitwise against their plain versions, beside
+   ``index_copy_`` / ``index_select`` (events and profiler); then
+   ``ops.moe_dispatch`` / ``moe_combine``, forward and backward, against
+   the oracles (``impl='ref'``): buffers, ``src``, ``keep``, the combine
+   and its gradient bitwise, the token gradient (K bf16 rows summed)
+   within a bf16 step; each timed.  Their rows of the JSON line report
+   this shape, with the paged shapes under ``shapes``.
 3. Paper workloads: first the three workload kernels against their plain
    versions, then the port's workload functions (``repro_torch.workloads``)
    at sizes their users run, with the launch counts reset just before:
@@ -92,15 +102,16 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    the SIMT kernels (fp32) at S=1024 within rtol = atol = 2e-5 (forward)
    and 1e-4 (backward), and on a ragged non-causal S=1000 and a causal
    window of 256, also against ``ref.mha``; the tensor-core kernels
-   (bf16, ``wgmma`` with TMA loads) at the training path's shapes (B=2,
-   32/4 heads, S=4096, D=128, causal, as (B, S, H, D) views), on a ragged
+   (bf16, ``wgmma`` with TMA loads) at the training paths' shapes (B=2,
+   S=4096, D=128, causal, as (B, S, H, D) views, with yi-6b's 32/4 heads
+   and olmoe-1b-7b's 16/16), on a ragged
    non-causal S=1000 and a causal window of 256 (also against ``ref.mha``
    in fp32), on Sq=512 over Skv=256 with fully masked rows (o = 0 and
    lse = -1e30 checked) and at D=64, within the same tolerances plus 2
    bf16 steps of each plain value (each side rounds once); each case
    prints its route; kernel, plain version and
    ``scaled_dot_product_attention`` (forward, backward) timed with CUDA
-   events at the path's shapes.  Then yi-6b at full width cut to 4 layers
+   events at the paths' shapes.  Then yi-6b at full width cut to 4 layers
    (random weights from a seeded generator, fp32 params, bf16 compute,
    remat), sequences of 4096 from the synthetic corpus, global batch 4
    in 2 microbatches: the plain path's first step and a forward-only loss
@@ -112,9 +123,30 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    fresh controller resumes from the step-3 checkpoint, as after a kill
    at step 4, and runs until a simulated kill at step 5: its losses must
    equal the straight run's bit for bit.
+8. MoE serving: olmoe-1b-7b at full size (16 layers, d_model 2048, 16/16
+   heads of 128, 64 experts top-8, d_ff 1024, vocab 50,304; 27.7 GB of
+   fp32 weights from a seeded generator, bf16 compute) through
+   ``launch.serve.dense_generate``: batch 8, prompts of 256 tokens, 32 new
+   tokens, on the kernels and on the plain path (``impl='ref'``).  The
+   greedy streams must be equal and the prefill logits bitwise equal; the
+   kernel run must launch one scatter (dispatch) and one gather (combine)
+   a layer a step and nothing else.  Prefill and decode tokens/s, the
+   profiler's kernels a decode step and the device's idle share of it.
+9. MoE training: olmoe-1b-7b at full width cut to ``MOE_TRAIN_LAYERS``
+   layers, train_4k's sequences, batch 4 in 2 microbatches, AdamW, remat,
+   4 steps, no checkpoints: the plain path's first-batch loss and
+   gradient norm against the kernels' step 0 (1e-5 and 1e-3 relative);
+   the kernel path's gradients of one batch, twice, equal leaf by leaf,
+   with 3 scatters and 3 gathers a layer a microbatch (forward, recompute,
+   backward); every loss finite; step time, tokens/s, peak memory and
+   the idle share of a profiled step.
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
+of the indirect converters report the MoE shape and add ``rows``,
+``kept_rows``, ``function_ms`` (the dispatch and combine Functions and
+their oracles, forward and backward) and ``device_ms`` /
+``library_device_ms``.  The rows
 of the paged attention kernels add ``kernel_route`` (the plan's route) and
 ``device_ms``; those of the gather, the paged K/V write and the two SpMVs
 add ``kernel_route``, ``device_ms`` / ``library_device_ms`` (profiler),
@@ -213,7 +245,8 @@ KERNELS = {
 #: their widest burst (rwkv6-3b's wkv state), the workload ones at the
 #: workloads phase's full size.
 REPORTED = {name: "fp32" for name in KERNELS}
-REPORTED.update(paged_kv_write="fp32 chunk", strided_gather="rwkv6-3b s",
+REPORTED.update(indirect_gather="moe", indirect_scatter="moe",
+                paged_kv_write="fp32 chunk", strided_gather="rwkv6-3b s",
                 strided_scatter="rwkv6-3b s",
                 tiled_transpose="16384 fp32", spmv_ell="2^22 rows",
                 spmv_ell_panel_kernel="2^20 rows", flash_attention="path bf16",
@@ -229,7 +262,7 @@ REPORTED.update(paged_kv_write="fp32 chunk", strided_gather="rwkv6-3b s",
 REDESIGN_KEYS = ("kernel_route", "device_ms", "library_device_ms",
                  "launch_floor_ms", "launch_floor_device_ms", "ms_cp_async",
                  "device_ms_cp_async", "routes", "slab_bytes", "shapes",
-                 "x_sector_bytes")
+                 "x_sector_bytes", "rows", "kept_rows", "function_ms")
 #: The keys of a kernel's other path shapes under ``shapes`` in its row
 #: (the gather's int8 codes and scale rows; the write's append and int8).
 SHAPE_KEYS = ("kernel_route", "slab_bytes", "ms", "device_ms", "library_ms",
@@ -265,6 +298,23 @@ BF16_ULPS = 2
 # then the step-0 gradient norm.
 LOSS_RTOL = 1e-5
 GRAD_NORM_RTOL = 1e-3
+
+# The MoE phases: olmoe-1b-7b (64 experts, top-8, d_model 2048), whose
+# dispatch and combine are the indirect scatter and gather.  Serving at
+# full size through dense_generate (batch 8, prompts of 256, 32 new
+# tokens); training at full width cut to MOE_TRAIN_LAYERS layers, train_4k's
+# sequences, batch 4 in 2 microbatches, AdamW, no checkpoints.  All 16
+# layers' fp32 params, grads and AdamW state are ~111 GB; 8 layers went
+# out of memory on an 80 GB H100 (params, AdamW m and v, the gradient
+# accumulator and a microbatch's gradients alone are 5 x 14.2 GB), so the
+# cell takes 6 (2.72 B parameters).  The
+# converters are timed at the training microbatch's shape: 2 x 4096
+# tokens, top-8, 65,536 rows of 4 KB (bf16) into 64 x 1280 slots.
+MOE_ARCH = "olmoe-1b-7b"
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 256, 32
+MOE_TRAIN_LAYERS = 6
+MOE_TRAIN_STEPS = 4
+MOE_CONVERTERS = ("indirect_scatter", "indirect_gather")
 
 
 class SmokeFailure(RuntimeError):
@@ -359,19 +409,25 @@ def profile_step(fn, top: int = 6):
              for us, c, k in rows[:top]])
 
 
-def profile_ms(fn, n: int = N_TIMED, tries: int = 3):
+PROFILER_MISSES: list[float] = []  # device_ms values taken by events
+
+
+def profile_ms(fn, n: int = N_TIMED, tries: int = 5):
     """Device time of one call of ``fn`` from ``torch.profiler``: the
     kernels' summed time over ``n`` back-to-back calls, over ``n``.  For a
     call of a few µs, event timing (:func:`time_ms`) stays on the launch
     floor (~5 µs), while this counts only the kernels' own time.  A session
     now and then records no device time at all; it is taken again, up to
-    ``tries`` sessions, and then the run fails."""
+    ``tries`` sessions.  If none records any, the time comes from CUDA
+    events around the ``n`` back-to-back calls instead (launch gaps
+    included), is logged as such and listed in :data:`PROFILER_MISSES`:
+    the number is a measurement, not a check, so the run goes on."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -381,7 +437,21 @@ def profile_ms(fn, n: int = N_TIMED, tries: int = 3):
                  for ev in prof.key_averages())
         if us > 0:
             return us / 1e3 / n
-    raise SmokeFailure(f"profiler: no device time in {tries} sessions")
+        log(f"profiler: session {attempt + 1} of {tries} recorded no "
+            f"device time")
+        time.sleep(0.2)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    PROFILER_MISSES.append(ms)
+    log(f"profiler: no device time in {tries} sessions; device_ms {ms!r} "
+        f"taken by CUDA events over {n} back-to-back calls instead")
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -612,13 +682,18 @@ def check_kernels(ops, dev, lens, bw, flops):
                                          table, lengths))
 
     records.update(check_strided(ops, dev))
+    records.update(check_moe_converters(ops, dev))
     records = add_bounds(records, bw, flops)
     rec = records[("indirect_gather", REPORTED["indirect_gather"])]
     rec.update(check_gather_routes(ops, dev))
     rec["shapes"] = {
-        stag: {key: records[("indirect_gather", stag)][key]
+        stag: {key: records[("indirect_gather", stag)].get(key)
                for key in SHAPE_KEYS}
-        for stag in ("int8", "int8 scale rows")}
+        for stag in ("fp32", "int8", "int8 scale rows")}
+    records[("indirect_scatter", REPORTED["indirect_scatter"])]["shapes"] = {
+        stag: {key: records[("indirect_scatter", stag)].get(key)
+               for key in SHAPE_KEYS}
+        for stag in ("fp32", "int8")}
     records[("paged_kv_write", REPORTED["paged_kv_write"])]["shapes"] = {
         stag: {key: records[("paged_kv_write", stag)].get(key)
                for key in SHAPE_KEYS}
@@ -795,6 +870,134 @@ def check_gather_routes(ops, dev):
     floor = lambda: ops.indirect_gather(one_src, one_idx)
     return dict(routes=routes, launch_floor_ms=time_ms(floor),
                 launch_floor_device_ms=profile_ms(floor))
+
+
+def moe_routing(dev, gen, t, e, k):
+    """Each of ``t`` tokens' ``k`` distinct experts of ``e``, drawn without
+    replacement with weights falling 2.7x from expert 0 to expert e - 1
+    (Gumbel top-k), so the popular experts overflow their capacity."""
+    logits = torch.linspace(0.5, -0.5, e, device=dev)
+    u = torch.rand((t, e), generator=gen, device=dev).clamp_min(1e-20)
+    return torch.topk(logits - torch.log(-torch.log(u)), k, dim=1).indices
+
+
+def check_moe_converters(ops, dev):
+    """The indirect scatter and gather at the MoE training microbatch's
+    shape (olmoe-1b-7b, 2 x 4096 tokens, top-8: 65,536 bf16 rows of 4 KB
+    into and out of a 64 x 1280-slot buffer, the dropped assignments'
+    sentinel row 81,920 included), each bitwise against its plain version
+    and timed beside ``index_copy_`` / ``index_select`` (by events and the
+    profiler); then ``ops.moe_dispatch`` / ``moe_combine``, forward and
+    backward, against the oracles (``impl='ref'``), timed the same way.
+    Returns the records keyed (name, "moe")."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models.mlp import moe_capacity
+
+    cfg = get_config(MOE_ARCH)
+    t = TRAIN_BATCH // TRAIN_ACCUM * SHAPES["train_4k"].seq_len
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    c = moe_capacity(cfg, t)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    idx = moe_routing(dev, gen, t, e, k)
+    slot, keep, _ = ref.moe_slots(idx, e, c)
+    slot32 = slot.to(torch.int32)
+    n_rows, n_slots = t * k, e * c
+    kept = int(keep.sum())
+    row = d * 2
+    rows = torch.randn((n_rows, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    expert_out = torch.randn((n_slots, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    records = {}
+
+    # -- the scatter (dispatch forward, combine backward).
+    got = ops.indirect_scatter(rows.new_zeros((n_slots, d)), rows, slot32)
+    want = ops.indirect_scatter(rows.new_zeros((n_slots, d)), rows, slot32,
+                                impl="ref")
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "indirect_scatter moe: not bitwise")
+    dst = rows.new_zeros((n_slots, d))
+    spare = rows.new_zeros((n_slots + 1, d))  # index_copy_ needs the sentinel
+    run = lambda: ops.indirect_scatter(dst, rows, slot32)  # noqa: E731
+    lib = lambda: spare.index_copy_(0, slot, rows)  # noqa: E731
+    records[("indirect_scatter", "moe")] = dict(
+        max_abs_err=0.0, ms=time_ms(run), device_ms=profile_ms(run),
+        plain_ms=time_ms(lambda: ops.indirect_scatter(dst, rows, slot32,
+                                                      impl="ref")),
+        library_ms=time_ms(lib), library_device_ms=profile_ms(lib),
+        rows=n_rows, kept_rows=kept,
+        # A dropped row is neither read nor written: each kept row is read
+        # once and written once, and every index is read.
+        bytes=2 * kept * row + n_rows * 4, ops=0)
+    del got, want, dst, spare
+
+    # -- the gather (combine forward, dispatch backward), the sentinel
+    #    clipped to the last row.
+    check_gather(ops, expert_out, slot32, "moe")
+    clipped = slot.clamp(max=n_slots - 1)
+    run = lambda: ops.indirect_gather(expert_out, slot32)  # noqa: E731
+    lib = lambda: torch.index_select(expert_out, 0, clipped)  # noqa: E731
+    run()
+    plan = ops.indirect_gather.plan
+    records[("indirect_gather", "moe")] = dict(
+        max_abs_err=0.0, ms=time_ms(run), device_ms=profile_ms(run),
+        plain_ms=time_ms(lambda: ops.indirect_gather(expert_out, slot32,
+                                                     impl="ref")),
+        library_ms=time_ms(lib), library_device_ms=profile_ms(lib),
+        kernel_route=plan.route, slab_bytes=plan.slab_bytes, rows=n_rows,
+        kept_rows=kept, bytes=2 * n_rows * row + n_rows * 4, ops=0)
+    require(plan.unit == 16, f"indirect_gather moe: plan {plan}, not "
+            f"16-byte units on 4 KB rows")
+
+    # -- through the dispatch and combine Functions, forward and backward.
+    tokens = torch.randn((t, d), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    outputs = expert_out.view(e, c, d).clone().requires_grad_(True)
+    gates = torch.rand((t, k), generator=gen, device=dev)
+    g_buf = torch.randn((e, c, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    g_out = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    times, res = {}, {}
+    for impl in ("cuda", "ref"):
+        buf, src, kp = ops.moe_dispatch(tokens, idx, e, c, impl=impl)
+        out = ops.moe_combine(outputs, src, gates * kp, t, impl=impl)
+        d_tok = torch.autograd.grad(buf, tokens, g_buf, retain_graph=True)[0]
+        d_out = torch.autograd.grad(out, outputs, g_out,
+                                    retain_graph=True)[0]
+        res[impl] = (buf, src, kp, out, d_tok, d_out)
+        tag = "" if impl == "cuda" else "plain_"
+        times.update({
+            f"{tag}dispatch": time_ms(lambda: ops.moe_dispatch(
+                tokens, idx, e, c, impl=impl)),
+            f"{tag}dispatch_backward": time_ms(lambda: torch.autograd.grad(
+                buf, tokens, g_buf, retain_graph=True)),
+            f"{tag}combine": time_ms(lambda: ops.moe_combine(
+                outputs, src, gates * kp, t, impl=impl)),
+            f"{tag}combine_backward": time_ms(lambda: torch.autograd.grad(
+                out, outputs, g_out, retain_graph=True)),
+        })
+    torch.cuda.synchronize()
+    names = ("buffers", "src", "keep", "combine", "d_tokens", "d_outputs")
+    same = {n: torch.equal(a, b)
+            for n, a, b in zip(names, res["cuda"], res["ref"])}
+    # The token gradient sums K bf16 rows: the oracle's repeat_interleave
+    # backward may sum them in another order.
+    err_tok = (res["cuda"][4].float() - res["ref"][4].float()).abs().max()
+    log(f"moe dispatch/combine at {t} tokens, top-{k} of {e}, capacity {c}: "
+        f"{kept} of {n_rows} assignments kept; bitwise vs the oracles: "
+        + json.dumps(same) + f"; d_tokens max abs err {float(err_tok):.3e}; "
+        "times (ms): " + json.dumps(times))
+    require(all(same[n] for n in names if n != "d_tokens"),
+            f"moe dispatch/combine: not bitwise vs the oracles: {same}")
+    require(bool(torch.allclose(res["cuda"][4].float(), res["ref"][4].float(),
+                                rtol=2.0 ** -7, atol=2.0 ** -7)),
+            f"moe dispatch backward: max abs err {float(err_tok):.3e}")
+    for name in MOE_CONVERTERS:
+        records[(name, "moe")]["function_ms"] = times
+    del res, tokens, outputs, g_buf, g_out, rows, expert_out
+    torch.cuda.empty_cache()
+    return records
 
 
 def add_bounds(records, bw, flops, rate="fp32"):
@@ -1448,14 +1651,21 @@ def serve_recurrent(serve_mod, cfg, arch, dev, prompts):
 def tree_digest(leaves) -> str:
     """A short digest of ``[(path, tensor)]``'s bits: two runs that print
     the same one computed the same tensors, bit for bit (up to a sum's
-    collisions)."""
+    collisions).  Each leaf's weighted sum of its 32-bit words (int64,
+    wrapping) is taken in slices of 2**26 words, so a leaf of billions of
+    elements needs no int64 copy of itself."""
     import hashlib
 
     sums = []
     for path, t in leaves:
-        bits = t.detach().contiguous().view(torch.int32).to(torch.int64)
-        weight = torch.arange(bits.numel(), device=t.device) % 65521 + 1
-        sums.append([path, int((bits.flatten() * weight).sum())])
+        words = t.detach().contiguous().view(torch.int32).flatten()
+        total = 0
+        for lo in range(0, words.numel(), 1 << 26):
+            bits = words[lo:lo + (1 << 26)].to(torch.int64)
+            weight = torch.arange(lo, lo + bits.numel(),
+                                  device=t.device) % 65521 + 1
+            total += int((bits * weight).sum())
+        sums.append([path, (total + (1 << 63)) % (1 << 64) - (1 << 63)])
     return hashlib.sha256(json.dumps(sums).encode()).hexdigest()[:16]
 
 
@@ -1537,9 +1747,10 @@ def flash_case(ops, ref, inputs, causal, window, fwd_tol, bwd_tol, tag,
 
 def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
     """Kernels 8-10 against their plain versions on both routes: bf16
-    (tensor cores) at the training path's shapes (timed, with SDPA as the
-    library call), a ragged non-causal S = 1000, a causal window of 256
-    (both also against ``ref.mha``), Sq = 512 over Skv = 256 with fully
+    (tensor cores) at the training paths' shapes (yi-6b's 32/4 heads and
+    olmoe-1b-7b's 16/16, each timed, with SDPA as the library call), a
+    ragged non-causal S = 1000, a causal window of 256 (both also against
+    ``ref.mha``), Sq = 512 over Skv = 256 with fully
     masked rows (o = 0, lse = -1e30 checked) and D = 64; fp32 (SIMT) at
     S = 1024, a ragged non-causal S = 1000 and a causal window of 256 (the
     last two also against ``ref.mha``).  The bound of the path's bf16
@@ -1549,14 +1760,18 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
 
     from repro_torch.configs import SHAPES, get_config
 
-    cfg = get_config("yi-6b")
+    cfg, moe = get_config("yi-6b"), get_config(MOE_ARCH)
     b, h, kvh, d = TRAIN_BATCH // TRAIN_ACCUM, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     seq = SHAPES["train_4k"].seq_len
+    timed = ("path bf16", "olmoe path bf16")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     records = {}
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [  # tag, shape, causal, window, oracle
         ("path bf16", dict(sq=seq, dtype=bf16), True, None, False),
+        ("olmoe path bf16", dict(sq=seq, dtype=bf16, h=moe.n_heads,
+                                 kvh=moe.n_kv_heads, d=moe.hd), True, None,
+         False),
         ("fp32 1024", dict(sq=1024, dtype=fp32), True, None, False),
         ("fp32 ragged 1000 non-causal", dict(sq=1000, dtype=fp32), False,
          None, True),
@@ -1571,7 +1786,8 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
          False),
     ]
     for tag, shape, causal, window, oracle in cases:
-        inputs = flash_inputs(dev, gen, b, h, kvh, **{"d": d, **shape})
+        inputs = flash_inputs(dev, gen, **{"b": b, "h": h, "kvh": kvh,
+                                           "d": d, **shape})
         errs, shares = flash_case(ops, ref, inputs, causal, window,
                                   FP32_FWD_TOL, FP32_BWD_TOL, tag, oracle)
         route = "wgmma" if shape["dtype"] == bf16 else "simt"
@@ -1598,12 +1814,12 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
             records[(kname, tag)] = dict(max_abs_err=err, ms=None,
                                          plain_ms=None, library_ms=None,
                                          bytes=0, ops=0)
-        if tag != "path bf16":
+        if tag not in timed:
             continue
         q, k, v, do = inputs
         sq = q.shape[2]
         o, lse = ops.flash_attention_fwd(q, k, v)
-        pairs = b * h * visible_pairs(sq, sq, True, None)
+        pairs = q.shape[0] * q.shape[1] * visible_pairs(sq, sq, True, None)
         qo_bytes = q.numel() * q.element_size()
         kv_bytes = k.numel() * k.element_size()
         lse_bytes = lse.numel() * 4
@@ -1638,11 +1854,27 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
     add_bounds(records, bw, bf16_flops,
                rate=f"bf16 tensor core {bf16_flops / 1e12:g} TFLOP/s")
     for kname in FLASH_KERNELS:
-        rec = records[(kname, "path bf16")]
-        # What the kernels' float32 arithmetic could reach at best.
-        rec["bound_fp32_ms"] = rec["ops"] / flops * 1e3
+        for tag in timed:
+            rec = records[(kname, tag)]
+            # What the kernels' float32 arithmetic could reach at best.
+            rec["bound_fp32_ms"] = rec["ops"] / flops * 1e3
     torch.cuda.empty_cache()
     return records
+
+
+def counted(ops, launches, fn):
+    """Run ``fn`` with every launch count set to 0 just before it and read
+    just after it: the counts are added to ``launches`` and kept as
+    ``counted.last``.  Returns what ``fn`` returns."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    try:
+        return fn()
+    finally:
+        torch.cuda.synchronize()
+        for key, n in ops.launch_counts().items():
+            launches[key] += n
+        counted.last = ops.launch_counts()
 
 
 def run_training(dev):
@@ -1671,17 +1903,6 @@ def run_training(dev):
                vocab=cfg.vocab, seq=seq, global_batch=TRAIN_BATCH,
                grad_accum=TRAIN_ACCUM, dtype=cfg.dtype,
                param_dtype=cfg.param_dtype, remat=cfg.remat)
-
-    def counted(fn):
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        try:
-            return fn()
-        finally:
-            torch.cuda.synchronize()
-            for key, n in ops.launch_counts().items():
-                launches[key] += n
-            counted.last = ops.launch_counts()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -1739,8 +1960,8 @@ def run_training(dev):
         micro = {key: val[:TRAIN_BATCH // TRAIN_ACCUM]
                  for key, val in batch0.items()}
         with torch.no_grad():
-            fwd_k = float(counted(lambda: lm.train_loss(params, micro,
-                                                         cfg)[0]))
+            fwd_k = float(counted(ops, launches, lambda: lm.train_loss(
+                params, micro, cfg)[0]))
             fwd_counts = counted.last
             fwd_p = float(lm.train_loss(params, micro, cfg, impl="ref")[0])
         out.update(no_grad_loss_kernel=fwd_k, no_grad_loss_plain=fwd_p,
@@ -1760,8 +1981,8 @@ def run_training(dev):
         state = fresh()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state = counted(lambda: c1.run(state, TRAIN_STEPS, log_every=1,
-                                       log_fn=log))
+        state = counted(ops, launches, lambda: c1.run(
+            state, TRAIN_STEPS, log_every=1, log_fn=log))
         out["straight_run_s"] = time.perf_counter() - t0
         counts = counted.last
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1811,9 +2032,9 @@ def run_training(dev):
                 f"training: resume finds step {c2.ckpt.latest_step()}")
         t0 = time.perf_counter()
         try:
-            counted(lambda: c2.run(fresh(), TRAIN_STEPS,
-                                   preempt_at=TRAIN_PREEMPT + 1,
-                                   log_every=100))
+            counted(ops, launches, lambda: c2.run(
+                fresh(), TRAIN_STEPS, preempt_at=TRAIN_PREEMPT + 1,
+                log_every=100))
             require(False, "training: the preemption never came")
         except KeyboardInterrupt:
             pass
@@ -1825,6 +2046,245 @@ def run_training(dev):
         require(resumed == want,
                 f"training: resumed losses {resumed} are not the straight "
                 f"run's {want} bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: olmoe-1b-7b, dense generation and training
+# ---------------------------------------------------------------------------
+
+
+def run_moe_serving(dev):
+    """Phase 8: olmoe-1b-7b at full size (random weights from a seeded
+    generator) through ``dense_generate`` on the kernels and on the plain
+    path.  Returns (the phase's numbers, the launch counts of the kernel
+    path's run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+
+    cfg = get_config(MOE_ARCH)
+    params = lm.init_model(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (MOE_BATCH, MOE_PROMPT)),
+                              dtype=torch.int32, device=dev)
+    max_len = MOE_PROMPT + MOE_NEW
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               experts=f"{cfg.n_experts} top-{cfg.top_k}", d_ff=cfg.d_ff,
+               vocab=cfg.vocab, params=n_params,
+               weight_gb=n_params * 4 / 1e9, batch=MOE_BATCH,
+               prompt=MOE_PROMPT, new_tokens=MOE_NEW, dtype=cfg.dtype)
+    log(f"{MOE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params:,} parameters, {n_params * 4 / 1e9:.2f} GB "
+        f"of fp32 weights")
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = dense_generate(cfg, params, prompts, MOE_NEW, max_len=max_len)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    plain = dense_generate(cfg, params, prompts, MOE_NEW, max_len=max_len,
+                           impl="ref")
+    equal = bool((toks == plain).all())
+    flips = np.argwhere(toks != plain)[:3].tolist()
+    out.update(generate_s=secs, tokens_per_s=MOE_BATCH * MOE_NEW / secs,
+               streams_equal=equal, first_flips=flips, launches=launches,
+               sample=toks[0, :16].tolist())
+    require(equal, f"serve {MOE_ARCH}: kernel and plain token streams "
+            f"differ at (row, token) {flips}")
+    steps = MOE_NEW + 1  # the prefill, then a decode step per token
+    require(all(launches[k] == cfg.n_layers * steps for k in MOE_CONVERTERS)
+            and sum(launches.values()) == 2 * cfg.n_layers * steps,
+            f"serve {MOE_ARCH}: not one scatter and one gather a layer a "
+            f"step: {launches}")
+
+    with torch.no_grad():
+        def prefill(impl="cuda"):
+            cache = lm.init_cache(cfg, MOE_BATCH, max_len, device=dev)
+            return lm.prefill(params, {"tokens": prompts}, cache, cfg,
+                              impl=impl)
+
+        logits_k, cache = prefill()
+        logits_p, _ = prefill("ref")
+        torch.cuda.synchronize()
+        out["prefill_logits_bitwise"] = torch.equal(logits_k, logits_p)
+        require(out["prefill_logits_bitwise"], f"serve {MOE_ARCH}: prefill "
+                f"logits differ between the kernel and plain paths")
+        prefill_ms = statistics.median(sync_ms(prefill) for _ in range(3))
+        tok = torch.argmax(logits_k[:, 0, :cfg.vocab], dim=-1)[:, None]
+
+        def step():
+            return lm.decode_step(params, tok, cache, MOE_PROMPT, cfg)
+
+        decode_ms = statistics.median(sync_ms(step) for _ in range(5))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in ops.launch_counts().items() if v}
+        out.update(prefill_ms=prefill_ms,
+                   prefill_tokens_per_s=MOE_BATCH * MOE_PROMPT
+                   / prefill_ms * 1e3,
+                   decode_step_ms=decode_ms,
+                   decode_tokens_per_s=MOE_BATCH / decode_ms * 1e3,
+                   launches_per_decode_step=per_step,
+                   device_busy_ms="not measured")
+        require(per_step == {k: cfg.n_layers for k in MOE_CONVERTERS},
+                f"serve {MOE_ARCH}: a decode step launched {per_step}")
+        prof = profile_step(step, top=8)
+        if prof is not None:
+            out.update(device_busy_ms=prof["busy_ms"],
+                       device_idle_share=1.0 - prof["busy_ms"] / decode_ms,
+                       kernels_per_decode_step=prof["kernels"],
+                       top=prof["top"])
+    del params, cache, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_moe_training(dev):
+    """Phase 9: olmoe-1b-7b at full width cut to MOE_TRAIN_LAYERS layers
+    through ``make_train_step`` (AdamW, 2 microbatches, remat).  Returns
+    (the phase's numbers, the launch counts of its main-path runs)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import TokenDataset, synthetic_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.optim import OptimizerConfig, global_norm, make_optimizer
+    from repro_torch.train import (grads_with_accum, make_loss_fn,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    seq = SHAPES["train_4k"].seq_len
+    launches = {k: 0 for k in ops.launch_counts()}
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               experts=f"{cfg.n_experts} top-{cfg.top_k}", d_ff=cfg.d_ff,
+               vocab=cfg.vocab, seq=seq, global_batch=TRAIN_BATCH,
+               grad_accum=TRAIN_ACCUM, dtype=cfg.dtype,
+               param_dtype=cfg.param_dtype, remat=cfg.remat,
+               steps=MOE_TRAIN_STEPS)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        synthetic_corpus(corpus, n_tokens=(MOE_TRAIN_STEPS + 2) * TRAIN_BATCH
+                         * (seq + 1), vocab=cfg.vocab, seed=SEED)
+        ds = TokenDataset(corpus, seq, TRAIN_BATCH)
+
+        def make_batch(step):
+            return {key: torch.as_tensor(val).to(dev)
+                    for key, val in ds.batch(step).items()}
+
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        out["params"] = sum(t.numel() for t in tree_leaves(params))
+        batch0 = make_batch(0)
+        torch.cuda.reset_peak_memory_stats()
+
+        # The plain path's gradients of the first batch (no update).
+        loss_p, _, grads = grads_with_accum(make_loss_fn(cfg, "ref"), params,
+                                            batch0, TRAIN_ACCUM)
+        out.update(plain_step0_loss=float(loss_p),
+                   plain_step0_grad_norm=float(global_norm(grads)))
+        del grads
+
+        # The kernel path's gradients of the same batch, twice: equal leaf
+        # by leaf (no atomics on the path), one scatter and one gather a
+        # layer a microbatch in each of forward, recompute and backward.
+        loss_fn = make_loss_fn(cfg)
+        grads_a = tree_paths(counted(ops, launches, lambda: grads_with_accum(
+            loss_fn, params, batch0, TRAIN_ACCUM))[2])
+        per_grads = counted.last
+        digest = tree_digest(grads_a)
+        grads_b = tree_paths(grads_with_accum(loss_fn, params, batch0,
+                                              TRAIN_ACCUM)[2])
+        differ = [path for (path, a), (_, b) in zip(grads_a, grads_b)
+                  if not torch.equal(a, b)]
+        out.update(step0_grads_differ=differ, step0_grad_digest=digest,
+                   launches_per_step={k: per_grads[k] for k in
+                                      MOE_CONVERTERS + FLASH_KERNELS})
+        require(not differ, f"moe training: the gradients of one batch "
+                f"differ between two runs in {differ}")
+        want = cfg.n_layers * TRAIN_ACCUM * 3
+        require(all(per_grads[k] == want for k in MOE_CONVERTERS),
+                f"moe training: a step's gradients launched {per_grads}, not "
+                f"{want} scatters and gathers")
+        del grads_a, grads_b
+        torch.cuda.empty_cache()
+
+        # The steps: AdamW, one batch each, no checkpoints.
+        opt = make_optimizer(OptimizerConfig(
+            name=cfg.optimizer, lr=cfg.learning_rate, warmup_steps=0,
+            total_steps=MOE_TRAIN_STEPS, weight_decay=cfg.weight_decay,
+            grad_clip=cfg.grad_clip))
+        train_step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
+        state = {"params": params, "opt": opt.init(params)}
+        history, step_s = [], []
+
+        def one(step):
+            p, o, metrics = train_step(state["params"], state["opt"],
+                                       make_batch(step), step)
+            state.update(params=p, opt=o)
+            return metrics
+
+        def run_steps():
+            for step in range(MOE_TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = one(step)
+                history.append({k: float(v) for k, v in metrics.items()})
+                step_s.append(time.perf_counter() - t0)
+                log(f"moe step {step}: loss {history[-1]['loss']:.6f} "
+                    f"grad_norm {history[-1]['grad_norm']:.6f} "
+                    f"{step_s[-1]:.3f} s")
+
+        counted(ops, launches, run_steps)
+        counts = counted.last
+        losses = [h["loss"] for h in history]
+        norms = [h["grad_norm"] for h in history]
+        step_med = statistics.median(step_s[1:])
+        out.update(losses=losses, grad_norms=norms, step_s=step_s,
+                   step_median_s=step_med,
+                   tokens_per_s=TRAIN_BATCH * seq / step_med,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                f"moe training: a loss is not finite: {losses} {norms}")
+        require(all(counts[k] == want * MOE_TRAIN_STEPS
+                    for k in MOE_CONVERTERS)
+                and counts["flash_attention_fwd"] > 0
+                and counts["flash_attention_bwd"] > 0,
+                f"moe training: the steps launched {counts}")
+        for key, ref_val in (("loss", out["plain_step0_loss"]),
+                             ("grad_norm", out["plain_step0_grad_norm"])):
+            got = history[0][key]
+            rtol = LOSS_RTOL if key == "loss" else GRAD_NORM_RTOL
+            require(abs(got - ref_val) <= rtol * abs(ref_val),
+                    f"moe training: step 0 {key} {got} (kernels) vs "
+                    f"{ref_val} (plain) over {rtol} relative")
+
+        # One more step, timed and profiled: the device's idle share.
+        wall_ms = sync_ms(lambda: one(MOE_TRAIN_STEPS))
+        out.update(step_wall_ms=wall_ms, device_busy_ms="not measured")
+        prof = profile_step(lambda: one(MOE_TRAIN_STEPS + 1), top=12)
+        if prof is not None:
+            out.update(device_busy_ms=prof["busy_ms"],
+                       device_idle_share=1.0 - prof["busy_ms"] / wall_ms,
+                       kernels_per_step=prof["kernels"], top=prof["top"])
+        del state, params, batch0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2065,8 +2525,40 @@ def main() -> int:
         f"launches per step {summary['launches_per_step']}; resumed losses "
         f"equal bit for bit: {summary['resumed_equal_bitwise']}")
     phase_s["training"] = time.perf_counter() - t0
+
+    # -- phase 8: olmoe-1b-7b dense generation, full size ---------------------
+    t0 = time.perf_counter()
+    summary, counts = run_moe_serving(dev)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"serve {MOE_ARCH} ({smi}): " + json.dumps(summary))
+    log(f"serve {MOE_ARCH}: prefill {summary['prefill_tokens_per_s']:.1f} "
+        f"tokens/s, decode {summary['decode_tokens_per_s']:.1f} tokens/s, "
+        f"device idle share of a decode step "
+        f"{summary.get('device_idle_share', 'not measured')}, kernels a "
+        f"decode step {summary.get('kernels_per_decode_step', 'not measured')}"
+        f", converter launches a decode step "
+        f"{summary['launches_per_decode_step']}; streams equal: "
+        f"{summary['streams_equal']}")
+    phase_s["moe serving"] = time.perf_counter() - t0
+
+    # -- phase 9: olmoe-1b-7b training, full width ----------------------------
+    t0 = time.perf_counter()
+    summary, counts = run_moe_training(dev)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"training {MOE_ARCH} width ({smi}): " + json.dumps(summary))
+    log(f"moe training: step {summary['step_median_s']:.3f} s median, "
+        f"{summary['tokens_per_s']:.1f} tokens/s, peak "
+        f"{summary['peak_memory_gb']:.2f} GB, device idle share "
+        f"{summary.get('device_idle_share', 'not measured')}, launches per "
+        f"step {summary['launches_per_step']}")
+    phase_s["moe training"] = time.perf_counter() - t0
     phase_s["total"] = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(phase_s))
+    log(f"profiler: {len(PROFILER_MISSES)} device_ms values taken by CUDA "
+        f"events (no device time in any profiler session): "
+        f"{PROFILER_MISSES}")
 
     kernels = []
     for kname, (source, replaces) in KERNELS.items():

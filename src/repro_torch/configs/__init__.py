@@ -3,9 +3,10 @@
 A copy of the parts of ``repro.configs`` the port's slices need: the
 ``yi-6b`` entry (paged and speculative serving, dense training, and the
 Mamba block at its width), the ``rwkv6-3b`` entry (recurrent serving),
-the shape cells ``SHAPES`` (training takes ``train_4k``'s sequence
-length) and :func:`smoke_config`, which reduces either model to a
-CPU-test size exactly as the reference does.
+the ``olmoe-1b-7b`` entry (MoE training and dense generation), the shape
+cells ``SHAPES`` (training takes ``train_4k``'s sequence length) and
+:func:`smoke_config`, which reduces any of them to a CPU-test size
+exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -13,10 +14,12 @@ import dataclasses
 from typing import Dict, List
 
 from .base import SHAPES, ArchConfig, ShapeConfig
+from .olmoe_1b_7b import CONFIG as _olmoe_1b_7b
 from .rwkv6_3b import CONFIG as _rwkv6_3b
 from .yi_6b import CONFIG as _yi_6b
 
-ARCHS: Dict[str, ArchConfig] = {c.name: c for c in [_yi_6b, _rwkv6_3b]}
+ARCHS: Dict[str, ArchConfig] = {
+    c.name: c for c in [_yi_6b, _rwkv6_3b, _olmoe_1b_7b]}
 
 ALL_ARCH_NAMES: List[str] = list(ARCHS)
 

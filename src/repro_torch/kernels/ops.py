@@ -31,6 +31,12 @@ and its backward the two backward passes (``flash_attention_bwd``, one
 count per backward call).  On a CPU tensor the same Function runs the
 plain versions.
 
+MoE token routing runs through ``moe_dispatch`` and ``moe_combine``, as
+in the reference composites over the indirect converters: integer slot
+arithmetic in tensor code, each data movement one ``indirect_scatter`` or
+``indirect_gather`` inside a ``torch.autograd.Function`` whose backward
+is the other converter (kernels on the card, plain versions on the CPU).
+
 The paper's workloads run through ``tiled_transpose`` (ismt) and
 ``spmv_ell`` (spmv, pagerank); ``spmv_ell_panel_kernel`` is the panel-
 streamed SpMV, which the reference calls directly since its ``ops`` has no
@@ -72,6 +78,8 @@ __all__ = [
     "indirect_gather",
     "indirect_scatter",
     "launch_counts",
+    "moe_combine",
+    "moe_dispatch",
     "paged_decode_attention",
     "paged_kv_append",
     "paged_kv_write",
@@ -355,6 +363,118 @@ def indirect_scatter(dst: torch.Tensor, packed: torch.Tensor,
             dst.shape[0], packed.shape[0], _row_bytes(dst), _stream(dst))
     indirect_scatter.launches += 1
     return dst
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch / combine (composite over the indirect converters)
+# ---------------------------------------------------------------------------
+
+
+class _MoeDispatch(torch.autograd.Function):
+    """``buf[slot[a]] = tokens[a // K]`` into a zeroed ``(E·C, D)`` buffer:
+    one :func:`indirect_scatter` of the T·K token rows, a dropped
+    assignment's sentinel ``slot = E·C`` falling outside and so dropped.
+    The backward is one :func:`indirect_gather` of the buffer's gradient
+    at ``slot``: the gather clips the sentinel to the live row ``E·C - 1``,
+    so the dropped rows are zeroed before each token sums its K rows over
+    an axis, in a fixed order and with no atomics."""
+
+    @staticmethod
+    def forward(ctx, tokens, slot, n_slots, k):
+        t, d = tokens.shape
+        rows = tokens.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
+        buf = tokens.new_zeros((n_slots, d))
+        indirect_scatter(buf, rows, slot)
+        ctx.save_for_backward(slot)
+        ctx.n_slots, ctx.k = n_slots, k
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        rows = indirect_gather(g.contiguous(), slot)
+        rows = rows.view(-1, ctx.k, rows.shape[-1])
+        rows.masked_fill_((slot >= ctx.n_slots).view(-1, ctx.k, 1), 0)
+        return rows.sum(dim=1), None, None, None
+
+
+class _MoeCombine(torch.autograd.Function):
+    """``rows[a] = outputs[inv[a]]``: one :func:`indirect_gather` of the
+    ``(E·C, D)`` expert outputs into ``(T·K, D)``; a dropped assignment
+    (``inv = E·C``, which the gather clips to a live row) is zeroed.  The
+    backward is one :func:`indirect_scatter` of the row gradients to their
+    buffer rows, into zeros: the unclipped sentinel drops a dropped row's
+    gradient, and empty slots keep zero."""
+
+    @staticmethod
+    def forward(ctx, outputs, inv):
+        rows = indirect_gather(outputs.contiguous(), inv)
+        rows.masked_fill_((inv >= outputs.shape[0])[:, None], 0)
+        ctx.save_for_backward(inv)
+        ctx.n_slots = outputs.shape[0]
+        return rows
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        grad = g.new_zeros((ctx.n_slots, g.shape[-1]))
+        indirect_scatter(grad, g.contiguous(), inv)
+        return grad, None
+
+
+def moe_dispatch(tokens: torch.Tensor, expert_idx: torch.Tensor,
+                 num_experts: int, capacity: int, impl: str = "cuda"):
+    """Pack tokens into (E, C, D) expert buffers by an indirect stream;
+    returns ``(buffers, src (E, C) int32, keep (T, K) bool)``, as
+    ``ref.moe_dispatch``.
+
+    The slot arithmetic (each assignment's rank within its expert) is
+    integer tensor code (``ref.moe_slots``); the data movement is one
+    indirect scatter of the T·K token rows, and the gradient one indirect
+    gather (``_MoeDispatch``): the kernels for tensors on the card, their
+    plain versions on the CPU.  ``impl='ref'`` runs the oracle.
+    """
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    if impl == "ref":
+        return ref.moe_dispatch(tokens, expert_idx, num_experts, capacity)
+    t, d = tokens.shape
+    k = expert_idx.shape[1]
+    slot, keep, src = ref.moe_slots(expert_idx, num_experts, capacity)
+    buf = _MoeDispatch.apply(tokens, _int32(slot, tokens.device),
+                             num_experts * capacity, k)
+    return (buf.view(num_experts, capacity, d),
+            src.view(num_experts, capacity), keep.view(t, k))
+
+
+def moe_combine(outputs: torch.Tensor, src_index: torch.Tensor,
+                gate_weights: torch.Tensor, num_tokens: int,
+                impl: str = "cuda") -> torch.Tensor:
+    """Un-pack (E, C, D) expert outputs to token order and weight them by
+    the gates: ``(T, D)``, as ``ref.moe_combine``.
+
+    The dispatch permutation is inverted in integer tensor code (each
+    assignment's buffer row, ``E·C`` where it was dropped); the rows
+    come back by one indirect gather, and the gradient goes by one
+    indirect scatter (``_MoeCombine``); then ``einsum('tkd,tk->td')`` with
+    the gates in the outputs' dtype.  ``impl='ref'`` runs the oracle.
+    """
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    if impl == "ref":
+        return ref.moe_combine(outputs, src_index, gate_weights, num_tokens)
+    e, c, d = outputs.shape
+    k = gate_weights.shape[1]
+    flat_src = src_index.reshape(e * c).long()
+    n_assign = num_tokens * k
+    inv = torch.full((n_assign + 1,), e * c, dtype=torch.int32,
+                     device=outputs.device)
+    inv = inv.scatter(0, torch.where(flat_src >= 0, flat_src, n_assign),
+                      torch.arange(e * c, dtype=torch.int32,
+                                   device=outputs.device))[:-1]
+    rows = _MoeCombine.apply(outputs.reshape(e * c, d), inv)
+    return torch.einsum("tkd,tk->td", rows.view(num_tokens, k, d),
+                        gate_weights.to(outputs.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Language-model assembly for training (from ``repro.models.lm``).
+"""Language-model assembly (from ``repro.models.lm``).
 
-The dense transformer family: parameter declarations (``layer_defs``,
-``model_defs``), their seeded initialization on the card
-(:func:`init_model`), the reference's own weights carried over leaf for
-leaf (:func:`lm_params_from_numpy`), and the training loss
-(:func:`train_loss`) with its embedding and output head.  MoE, the
-recurrent and hybrid families and the audio/vision front ends raise,
-naming ROADMAP A7.
+The transformer family, dense or Mixture-of-Experts: parameter
+declarations (``layer_defs``, ``model_defs``), their seeded initialization
+on the card (:func:`init_model`), the reference's own weights carried over
+leaf for leaf (:func:`lm_params_from_numpy`), the training loss
+(:func:`train_loss`, with the MoE load-balance loss summed over layers)
+with its embedding and output head, and the dense inference path over a
+contiguous KV cache (:func:`init_cache`, :func:`prefill`,
+:func:`decode_step`, :func:`extend_step`, :func:`prefill_chunked`), which
+is how the reference serves an MoE model.  The recurrent and hybrid
+families and the audio/vision front ends raise, naming ROADMAP A7.
 
 Layers are stacked ``(L, ...)`` as in the reference and the forward loop
 slices layer ``i``; under ``cfg.remat`` each layer runs inside
@@ -18,11 +21,13 @@ with no counterpart in eager PyTorch, so it is left out.
 
 Parameter trees are nested dicts of tensors under the reference's paths
 (``['layers']['attn']['wq']``, ``['embed']``, ...), the form every
-training function takes.
+training function takes.  The cache is a dict of ``(L, B, max_len, ...)``
+tensors; a layer writes its slice in place, where the reference carries
+the stack through its scan and updates it functionally.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,35 +35,38 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from .attention import attention_defs, attention_fwd
+from . import attention as attn_mod
 from .common import (Param, cast_tree, chunked_softmax_xent, init_params,
                      map_tree, rms_norm, stack_layer_defs, tree_paths)
-from .mlp import mlp_defs, mlp_fwd
+from .mlp import mlp_defs, mlp_fwd, moe_defs, moe_fwd
 
 __all__ = [
+    "decode_step",
     "embed_tokens",
+    "extend_step",
+    "init_cache",
     "init_model",
     "layer_defs",
     "lm_params_from_numpy",
     "model_defs",
     "output_weight",
+    "prefill",
+    "prefill_chunked",
     "train_loss",
 ]
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """Raise for the families whose training is not ported yet."""
+    """Raise for the families whose model is not ported yet."""
     what = None
     if cfg.ssm is not None:
         what = f"the {cfg.ssm} family"
-    elif cfg.n_experts:
-        what = "MoE layers"
     elif cfg.modality != "text":
         what = f"the {cfg.modality} front end"
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name}: training {what} is not ported yet (ROADMAP A7); "
-            f"the port trains the dense transformer family")
+            f"{cfg.name}: {what} is not ported yet (ROADMAP A7c); the port "
+            f"runs the transformer family, dense or MoE")
 
 
 # ---------------------------------------------------------------------------
@@ -69,12 +77,14 @@ def _check_family(cfg: ArchConfig) -> None:
 def layer_defs(cfg: ArchConfig, q_heads: int, kv_heads: int) -> Dict[str, Any]:
     _check_family(cfg)
     d = cfg.d_model
-    return {
-        "attn": attention_defs(cfg, q_heads, kv_heads),
-        "mlp": mlp_defs(cfg),
-        "ln1": Param((d,), init="zeros"),
-        "ln2": Param((d,), init="zeros"),
-    }
+    block: Dict[str, Any] = {
+        "attn": attn_mod.attention_defs(cfg, q_heads, kv_heads)}
+    if cfg.n_experts:
+        block["moe"] = moe_defs(cfg)
+    else:
+        block["mlp"] = mlp_defs(cfg)
+    return {**block, "ln1": Param((d,), init="zeros"),
+            "ln2": Param((d,), init="zeros")}
 
 
 def model_defs(cfg: ArchConfig, tp: int = 1) -> Dict[str, Any]:
@@ -132,12 +142,41 @@ def lm_params_from_numpy(tree, cfg: ArchConfig, device=None,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(lp, x: torch.Tensor, cfg: ArchConfig, impl: str
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP or MoE on ``x`` (normed): (output, aux loss)."""
+    if cfg.n_experts:
+        return moe_fwd(lp["moe"], x, cfg, impl=impl)
+    return mlp_fwd(lp["mlp"], x, cfg), x.new_zeros((), dtype=torch.float32)
+
+
 def _block_train(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
-                 positions: torch.Tensor, impl: str) -> torch.Tensor:
-    a = attention_fwd(lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global,
-                      positions, impl=impl)
+                 positions: torch.Tensor, impl: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux loss)."""
+    a = attn_mod.attention_fwd(lp["attn"], rms_norm(x, lp["ln1"]), cfg,
+                               is_global, positions, impl=impl)
     x = x + a
-    return x + mlp_fwd(lp["mlp"], rms_norm(x, lp["ln2"]), cfg)
+    m, aux = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
+    return x + m, aux
+
+
+def _block_prefill(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
+                   cache, impl: str):
+    a, cache = attn_mod.attention_prefill(lp["attn"], rms_norm(x, lp["ln1"]),
+                                          cfg, is_global, cache)
+    x = x + a
+    m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
+    return x + m, cache
+
+
+def _block_decode(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
+                  cache, pos: int, impl: str):
+    a, cache = attn_mod.attention_decode(lp["attn"], rms_norm(x, lp["ln1"]),
+                                         cfg, is_global, cache, pos)
+    x = x + a
+    m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
+    return x + m, cache
 
 
 def embed_tokens(params, batch, cfg: ArchConfig) -> torch.Tensor:
@@ -162,22 +201,107 @@ def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda"
     """batch: tokens (B, S), targets (B, S), mask (B, S).  Returns
     ``(loss, {"ce_loss", "aux_loss", "tokens"})``.
 
-    ``impl`` selects the attention: ``'cuda'`` the flash kernels for
-    tensors on the card (their plain versions on the CPU), ``'ref'`` the
+    ``impl`` selects the kernels: ``'cuda'`` the flash kernels and, for an
+    MoE model, the indirect converters of the dispatch and combine, for
+    tensors on the card (their plain versions on the CPU); ``'ref'`` the
     plain versions anywhere.
     """
     x = embed_tokens(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = map_tree(lambda t: t[i], params["layers"])
         args = (x, lp, cfg, cfg.layer_is_global(i), positions, impl)
-        x = (checkpoint(_block_train, *args, use_reentrant=False) if remat
-             else _block_train(*args))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = (checkpoint(_block_train, *args, use_reentrant=False) if remat
+                else _block_train(*args))
+        aux = aux + a
     x = rms_norm(x, params["final_norm"])
     w_out = output_weight(params, cfg).to(cfg.compute_dtype)
     loss, cnt = chunked_softmax_xent(x, w_out, batch["targets"],
                                      batch.get("mask"), n_valid=cfg.vocab)
     total = loss + cfg.router_aux_coef * aux / cfg.n_layers
     return total, {"ce_loss": loss, "aux_loss": aux, "tokens": cnt}
+
+
+# ---------------------------------------------------------------------------
+# Dense inference: contiguous KV cache, prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> Dict[str, torch.Tensor]:
+    """The layers' KV caches stacked ``(L, B, max_len, KVH, hd)`` (int8
+    codes and ``(L, B, max_len, KVH)`` scales for an int8 cache), zeros on
+    ``device`` (``None``: the GPU)."""
+    _check_family(cfg)
+    _, kv_heads = cfg.heads_for_tp(1)
+    one = attn_mod.init_kv_cache(cfg, kv_heads, batch, max_len,
+                                 resolve_device(device))
+    return {name: t.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * t.dim())
+            for name, t in one.items()}
+
+
+def _run_with_cache(params, x: torch.Tensor, cache, cfg: ArchConfig, block):
+    """The layers in order, each on its slice of the stacked cache
+    (``block(x, lp, is_global, layer_cache)``), written in place."""
+    for i in range(cfg.n_layers):
+        lp = map_tree(lambda t: t[i], params["layers"])
+        x, _ = block(x, lp, cfg.layer_is_global(i),
+                     {name: c[i] for name, c in cache.items()})
+    return x, cache
+
+
+def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"])
+    return x @ output_weight(params, cfg).to(cfg.compute_dtype)
+
+
+def prefill(params, batch, cache, cfg: ArchConfig, impl: str = "cuda"):
+    """Fill the cache from a prompt (``batch['tokens']`` (B, S)); returns
+    (last-token logits (B, 1, V), cache).  ``impl`` selects the MoE
+    dispatch and combine (:func:`train_loss`); the attention of the dense
+    path is plain tensor code on every device, as in the reference."""
+    x = embed_tokens(params, batch, cfg)
+    x, cache = _run_with_cache(
+        params, x, cache, cfg,
+        lambda x_, lp, g, lc: _block_prefill(x_, lp, cfg, g, lc, impl))
+    return _logits(params, x[:, -1:], cfg), cache
+
+
+def decode_step(params, tokens: torch.Tensor, cache, pos: int,
+                cfg: ArchConfig, impl: str = "cuda"):
+    """One decode step: tokens (B, 1) at position ``pos`` → (logits (B, V),
+    cache)."""
+    logits, cache = extend_step(params, tokens, cache, pos, cfg, impl)
+    return logits[:, 0], cache
+
+
+def extend_step(params, tokens: torch.Tensor, cache, pos: int,
+                cfg: ArchConfig, impl: str = "cuda"):
+    """A chunk of tokens (B, C) at positions [pos, pos + C) against the
+    cache (chunked prefill): the decode attention takes any C.  Returns
+    (last-token logits (B, 1, V), cache)."""
+    x = embed_tokens(params, {"tokens": tokens}, cfg)
+    x, cache = _run_with_cache(
+        params, x, cache, cfg,
+        lambda x_, lp, g, lc: _block_decode(x_, lp, cfg, g, lc, pos, impl))
+    return _logits(params, x[:, -1:], cfg), cache
+
+
+def prefill_chunked(params, batch, cache, cfg: ArchConfig, chunk: int,
+                    impl: str = "cuda"):
+    """Prefill in fixed-size chunks through :func:`extend_step`: the
+    attention scores scale with ``chunk``, and MoE capacity is per chunk,
+    as in continuous-batching serving.  Returns (last-token logits
+    (B, 1, V), cache)."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    if s % chunk:
+        raise ValueError(f"prompt length {s} is not a multiple of the chunk "
+                         f"{chunk}")
+    logits: Optional[torch.Tensor] = None
+    for i in range(0, s, chunk):
+        logits, cache = extend_step(params, tokens[:, i:i + chunk], cache, i,
+                                    cfg, impl)
+    return logits, cache

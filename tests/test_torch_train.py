@@ -217,11 +217,13 @@ def test_unported_families_and_steps_raise():
     with pytest.raises(NotImplementedError, match="A7"):
         lm.model_defs(get_config("rwkv6-3b"))
     with pytest.raises(NotImplementedError, match="A7"):
-        lm.model_defs(dataclasses.replace(CFG, n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="A7"):
-        mlp.moe_fwd({}, torch.zeros(1), CFG)
+        lm.model_defs(dataclasses.replace(CFG, modality="audio"))
+    with pytest.raises(NotImplementedError, match="A9"):
+        mlp._ep_moe_fwd({}, torch.zeros(1), CFG)
     with pytest.raises(NotImplementedError, match="A9"):
         make_compressed_train_step(CFG, None, None)
+    # MoE layers are ported: their tree builds.
+    assert "moe" in lm.model_defs(smoke_config("olmoe-1b-7b"))["layers"]
 
 
 # ---------------------------------------------------------------------------
