@@ -107,11 +107,17 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    and olmoe-1b-7b's 16/16), on a ragged
    non-causal S=1000 and a causal window of 256 (also against ``ref.mha``
    in fp32), on Sq=512 over Skv=256 with fully masked rows (o = 0 and
-   lse = -1e30 checked) and at D=64, within the same tolerances plus 2
-   bf16 steps of each plain value (each side rounds once); each case
-   prints its route; kernel, plain version and
-   ``scaled_dot_product_attention`` (forward, backward) timed with CUDA
-   events at the paths' shapes.  Then yi-6b at full width cut to 4 layers
+   lse = -1e30 checked), at D=64, and at D=80 (causal, ragged non-causal
+   and windowed, both routes; the bf16 route runs D=80 in D=128 tiles),
+   within the same tolerances plus 2 bf16 steps of each plain value (each
+   side rounds once); then at the families' shapes (bf16, B 2, S 4096):
+   hymba-1.5b's 25/5 heads of 64 with its window of 1024 and causal for
+   its global layers, gemma3-27b's 32/16 of 128 with its window,
+   qwen2.5-14b's 40/8 of 128, internvl2-1b's 14/2 of 64, hubert-xlarge's
+   non-causal 16/16 of 80; each case prints its route; kernel, plain
+   version and ``scaled_dot_product_attention`` (forward, backward; an
+   explicit mask for a window) timed with CUDA events at the paths' and
+   the families' shapes.  Then yi-6b at full width cut to 4 layers
    (random weights from a seeded generator, fp32 params, bf16 compute,
    remat), sequences of 4096 from the synthetic corpus, global batch 4
    in 2 microbatches: the plain path's first step and a forward-only loss
@@ -140,9 +146,34 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    with 3 scatters and 3 gathers a layer a microbatch (forward, recompute,
    backward); every loss finite; step time, tokens/s, peak memory and
    the idle share of a profiled step.
+10. hymba-1.5b training at full size, no cut (32 layers, d_model 1600,
+    25/5 heads of 64, window 1024 with layers 0, 16 and 31 global,
+    Mamba heads of d_inner 3200 and state 16, vocab 32,001; 1.66 B fp32
+    parameters from a seeded generator, bf16 compute, remat): train_4k's
+    sequences, batch 4 in 2 microbatches, AdamW, 3 steps, no checkpoints.
+    The plain path's first-batch loss and gradient norm against the
+    kernels' step 0 (1e-5 and 1e-3 relative); the kernel path's gradients
+    of that batch, twice, equal leaf by leaf, with 128 forward-with-lse
+    and 64 backward flash launches (two and one a layer a microbatch); step
+    0 is their update; every loss finite; step time, tokens/s, peak
+    memory and a profiled step's idle share.
+11. hubert-xlarge training at full size, no cut (48 layers, d_model
+    1280, 16/16 heads of 80, non-causal, plain GELU MLP, 512-wide audio
+    frames from a seeded numpy generator, vocab 504; 0.95 B parameters),
+    as phase 10: 192 / 96 flash launches a step at D = 80.
+12. hymba-1.5b dense generation at full size through ``dense_generate``
+    (batch 8, prompts of 256, 32 new tokens, bf16): ids in the vocab,
+    prefill and decode tokens/s, the profiler's kernels and idle share of
+    a decode step; then ``tests/test_arch_smoke.py``'s contract at full
+    size: prefill plus one decode step a token against one full forward
+    (the flash kernel, one launch a layer) over 2 x (1100 + 32) tokens,
+    so that the window of 1024 binds, within 2e-4, at float32 activations
+    (the contract's tolerance is set for them).
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
+of the flash kernels carry the other timed shapes (olmoe-1b-7b's and the
+families') under ``shapes``.  The rows
 of the indirect converters report the MoE shape and add ``rows``,
 ``kept_rows``, ``function_ms`` (the dispatch and combine Functions and
 their oracles, forward and backward) and ``device_ms`` /
@@ -298,6 +329,21 @@ BF16_ULPS = 2
 # then the step-0 gradient norm.
 LOSS_RTOL = 1e-5
 GRAD_NORM_RTOL = 1e-3
+# The families' flash shapes (bf16, B 2, S 4096), each timed over
+# FAMILY_TIMED_N runs beside SDPA: (tag, arch, whether the layer is
+# windowed); heads, head dim and mask come from the configuration.
+FAMILY_FLASH = (
+    ("hymba-1.5b window 1024", "hymba-1.5b", True),
+    ("hymba-1.5b global", "hymba-1.5b", False),
+    ("gemma3-27b window 1024", "gemma3-27b", True),
+    ("qwen2.5-14b", "qwen2.5-14b", False),
+    ("internvl2-1b", "internvl2-1b", False),
+    ("hubert-xlarge", "hubert-xlarge", False),
+)
+FAMILY_TIMED_N = 5
+#: The keys of the flash rows' other shapes under ``shapes``.
+FLASH_SHAPE_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "library_fwd_bwd_ms")
 
 # The MoE phases: olmoe-1b-7b (64 experts, top-8, d_model 2048), whose
 # dispatch and combine are the indirect scatter and gather.  Serving at
@@ -315,6 +361,21 @@ MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 256, 32
 MOE_TRAIN_LAYERS = 6
 MOE_TRAIN_STEPS = 4
 MOE_CONVERTERS = ("indirect_scatter", "indirect_gather")
+
+# The families at full size, no cut: hymba-1.5b and hubert-xlarge train
+# on train_4k's sequences, batch 4 in 2 microbatches, AdamW, remat,
+# FAMILY_STEPS steps (the first is the update of the gradients checked
+# twice), no checkpoints.  hymba-1.5b also generates through
+# dense_generate (batch 8, prompts of 256, 32 new tokens), and holds
+# prefill plus decode against one full forward (test_arch_smoke.py's
+# contract, 2e-4) at float32 activations over 2 x (1100 + 32) tokens, so
+# that its window of 1024 binds.
+FAMILY_TRAIN = ("hymba-1.5b", "hubert-xlarge")
+FAMILY_STEPS = 3
+HYMBA = "hymba-1.5b"
+HYMBA_BATCH, HYMBA_PROMPT, HYMBA_NEW = 8, 256, 32
+CONTRACT_BATCH, CONTRACT_PROMPT, CONTRACT_NEW = 2, 1100, 32
+CONTRACT_TOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -374,17 +435,20 @@ def time_ms(fn, n: int = N_TIMED, sleep_cycles: int = SLEEP_CYCLES,
     return statistics.median(times)
 
 
-def profile_step(fn, top: int = 6):
+def profile_step(fn, top: int = 6, warm: bool = True):
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``:
     the summed kernel time, the number of kernels run, and the ``top``
     kernels by time.  A step of more than ~1,000 launches fills the
     card's launch queue, so the host blocks inside a queued-ahead run and
     event timing (as :func:`throughput` uses for the paged decode step)
     overstates its device time; the profiler's sum does not.
-    Returns ``None`` where the profiler records no device time."""
+    Returns ``None`` where the profiler records no device time.  ``warm``
+    False profiles the first call (a step that follows others is warm
+    already)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1745,17 +1809,47 @@ def flash_case(ops, ref, inputs, causal, window, fwd_tol, bwd_tol, tag,
     return errs, shares
 
 
+def family_flash_cases():
+    """The families' flash shapes (bf16, B 2, S 4096): (tag, heads, kv
+    heads, head dim, causal, window) from each configuration."""
+    from repro_torch.configs import get_config
+
+    out = []
+    for tag, arch, windowed in FAMILY_FLASH:
+        cfg = get_config(arch)
+        out.append((tag, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.causal,
+                    cfg.window if windowed else None))
+    return out
+
+
+def sdpa_mask(sq, causal, window, dev):
+    """The (Sq, Sq) boolean mask SDPA needs for a window (None otherwise:
+    ``is_causal`` or nothing)."""
+    if window is None:
+        return None
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(sq, device=dev)[None, :]
+    ok = (i - j) < window
+    return ok & (j <= i) if causal else ok
+
+
 def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
     """Kernels 8-10 against their plain versions on both routes: bf16
     (tensor cores) at the training paths' shapes (yi-6b's 32/4 heads and
-    olmoe-1b-7b's 16/16, each timed, with SDPA as the library call), a
-    ragged non-causal S = 1000, a causal window of 256 (both also against
-    ``ref.mha``), Sq = 512 over Skv = 256 with fully
-    masked rows (o = 0, lse = -1e30 checked) and D = 64; fp32 (SIMT) at
-    S = 1024, a ragged non-causal S = 1000 and a causal window of 256 (the
-    last two also against ``ref.mha``).  The bound of the path's bf16
-    work is taken at the bf16 tensor-core rate ``bf16_flops``;
-    ``bound_fp32_ms`` is the same work at the float32 rate ``flops``."""
+    olmoe-1b-7b's 16/16, each timed, with SDPA as the library call) and
+    the families' (``FAMILY_FLASH``: hymba-1.5b's window of 1024 and its
+    global layers, gemma3-27b's window, qwen2.5-14b's 40/8, internvl2-1b's
+    14/2, hubert-xlarge's non-causal 16/16 at D = 80; each timed over
+    ``FAMILY_TIMED_N`` runs), a ragged non-causal S = 1000, a causal
+    window of 256 (both also against ``ref.mha``), Sq = 512 over Skv = 256
+    with fully masked rows (o = 0, lse = -1e30 checked), D = 64, and D =
+    80 causal, ragged non-causal and windowed; fp32 (SIMT) at S = 1024, a
+    ragged non-causal S = 1000 and a causal window of 256 (the last two
+    also against ``ref.mha``), and at D = 80 ragged non-causal and
+    windowed.  The bound of the path's bf16 work is taken at the bf16
+    tensor-core rate ``bf16_flops``; ``bound_fp32_ms`` is the same work at
+    the float32 rate ``flops``.  The rows of the path's shape carry the
+    others' numbers under ``shapes``."""
     import torch.nn.functional as F
 
     from repro_torch.configs import SHAPES, get_config
@@ -1763,7 +1857,6 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
     cfg, moe = get_config("yi-6b"), get_config(MOE_ARCH)
     b, h, kvh, d = TRAIN_BATCH // TRAIN_ACCUM, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     seq = SHAPES["train_4k"].seq_len
-    timed = ("path bf16", "olmoe path bf16")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     records = {}
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -1784,7 +1877,23 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
          True, 64, False),
         ("bf16 1024 D 64", dict(sq=1024, dtype=bf16, d=64), True, None,
          False),
+        # D = 80 (hubert-xlarge): the bf16 route runs it in D = 128 tiles.
+        ("bf16 1024 D 80", dict(sq=1024, dtype=bf16, d=80), True, None,
+         False),
+        ("bf16 ragged 1000 non-causal D 80", dict(sq=1000, dtype=bf16, d=80),
+         False, None, True),
+        ("bf16 1024 window 256 D 80", dict(sq=1024, dtype=bf16, d=80), True,
+         256, True),
+        ("fp32 ragged 1000 non-causal D 80", dict(sq=1000, dtype=fp32, d=80),
+         False, None, True),
+        ("fp32 1024 window 256 D 80", dict(sq=1024, dtype=fp32, d=80), True,
+         256, True),
     ]
+    timed = {"path bf16": N_TIMED, "olmoe path bf16": N_TIMED}
+    for tag, fh, fkvh, fd, causal, window in family_flash_cases():
+        cases.append((tag, dict(sq=seq, dtype=bf16, h=fh, kvh=fkvh, d=fd),
+                      causal, window, False))
+        timed[tag] = FAMILY_TIMED_N
     for tag, shape, causal, window, oracle in cases:
         inputs = flash_inputs(dev, gen, **{"b": b, "h": h, "kvh": kvh,
                                            "d": d, **shape})
@@ -1816,41 +1925,48 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
                                          bytes=0, ops=0)
         if tag not in timed:
             continue
+        n = timed[tag]
         q, k, v, do = inputs
-        sq = q.shape[2]
-        o, lse = ops.flash_attention_fwd(q, k, v)
-        pairs = q.shape[0] * q.shape[1] * visible_pairs(sq, sq, True, None)
+        kw = dict(causal=causal, window=window)
+        d_ = q.shape[3]
+        o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+        pairs = q.shape[0] * q.shape[1] * visible_pairs(sq, sq, causal,
+                                                        window)
         qo_bytes = q.numel() * q.element_size()
         kv_bytes = k.numel() * k.element_size()
         lse_bytes = lse.numel() * 4
         fwd_bytes = 2 * qo_bytes + 2 * kv_bytes
+        mask = sdpa_mask(sq, causal, window, dev)
         sdpa = lambda *t: F.scaled_dot_product_attention(  # noqa: E731
-            *t, is_causal=True, enable_gqa=True)
+            *t, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = sdpa(*leaves)
         sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
             out, leaves, do, retain_graph=True)
-        sdpa_fwd_ms = time_ms(lambda: sdpa(q, k, v))
+        sdpa_fwd_ms = time_ms(lambda: sdpa(q, k, v), n=n)
         plain_fwd_ms = time_ms(
-            lambda: ops.flash_attention_fwd(q, k, v, impl="ref"))
+            lambda: ops.flash_attention_fwd(q, k, v, impl="ref", **kw), n=n)
         records[("flash_attention", tag)].update(
-            ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw), n=n),
             plain_ms=plain_fwd_ms, library_ms=sdpa_fwd_ms, bytes=fwd_bytes,
-            ops=4 * d * pairs)
+            ops=4 * d_ * pairs)
         records[("flash_attention_fwd", tag)].update(
-            ms=time_ms(lambda: ops.flash_attention_fwd(q, k, v)),
+            ms=time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw), n=n),
             plain_ms=plain_fwd_ms, library_ms=sdpa_fwd_ms,
-            bytes=fwd_bytes + lse_bytes, ops=4 * d * pairs)
+            bytes=fwd_bytes + lse_bytes, ops=4 * d_ * pairs)
         records[("flash_attention_bwd", tag)].update(
-            ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do)),
+            ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do,
+                                                       **kw), n=n),
             plain_ms=time_ms(lambda: ops.flash_attention_bwd(
-                q, k, v, o, lse, do, impl="ref")),
-            library_ms=time_ms(sdpa_bwd),
+                q, k, v, o, lse, do, impl="ref", **kw), n=n),
+            library_ms=time_ms(sdpa_bwd, n=n),
             library_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
-                sdpa(*leaves), leaves, do)),
+                sdpa(*leaves), leaves, do), n=n),
             bytes=4 * qo_bytes + 4 * kv_bytes + lse_bytes,
-            ops=10 * d * pairs)
-        del out, leaves
+            ops=10 * d_ * pairs)
+        del out, leaves, inputs, q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     add_bounds(records, bw, bf16_flops,
                rate=f"bf16 tensor core {bf16_flops / 1e12:g} TFLOP/s")
     for kname in FLASH_KERNELS:
@@ -1858,6 +1974,10 @@ def check_flash_kernels(ops, ref, dev, bw, flops, bf16_flops):
             rec = records[(kname, tag)]
             # What the kernels' float32 arithmetic could reach at best.
             rec["bound_fp32_ms"] = rec["ops"] / flops * 1e3
+        records[(kname, REPORTED[kname])]["shapes"] = {
+            tag: {key: records[(kname, tag)].get(key)
+                  for key in FLASH_SHAPE_KEYS}
+            for tag in timed if tag != REPORTED[kname]}
     torch.cuda.empty_cache()
     return records
 
@@ -2292,6 +2412,278 @@ def run_moe_training(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-12: hymba-1.5b and hubert-xlarge at full size
+# ---------------------------------------------------------------------------
+
+
+def run_family_training(arch, dev):
+    """Phases 10 and 11: ``arch`` at full size, no cut, through the
+    training path (``grads_with_accum`` and the optimizer's update, as
+    ``make_train_step`` runs them): the plain path's first-batch loss and
+    gradient norm against the kernels' step 0 (1e-5 and 1e-3 relative);
+    the kernel path's gradients of that batch, twice, equal leaf by leaf,
+    with the flash kernels' launches counted (forward with lse twice a
+    layer a microbatch under remat, the backward once); step 0 is the
+    update by those gradients, then FAMILY_STEPS - 1 timed steps; every
+    loss finite; step time, tokens/s, peak memory and the idle share of a
+    profiled step.  Returns (the phase's numbers, the launch counts of its
+    main-path runs)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.data import (TokenDataset, make_frontend_batch,
+                                  synthetic_corpus)
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_paths
+    from repro_torch.optim import OptimizerConfig, global_norm, make_optimizer
+    from repro_torch.train import (grads_with_accum, make_loss_fn,
+                                   make_train_step)
+
+    cfg = get_config(arch)
+    seq = SHAPES["train_4k"].seq_len
+    launches = {k: 0 for k in ops.launch_counts()}
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.hd,
+               d_ff=cfg.d_ff, vocab=cfg.vocab, window=cfg.window,
+               causal=cfg.causal, modality=cfg.modality, ssm=cfg.ssm,
+               seq=seq, global_batch=TRAIN_BATCH, grad_accum=TRAIN_ACCUM,
+               dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+               remat=cfg.remat, steps=FAMILY_STEPS,
+               config_param_count=cfg.param_count())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    try:
+        corpus = os.path.join(tmp, "corpus")
+        synthetic_corpus(corpus, n_tokens=(FAMILY_STEPS + 2) * TRAIN_BATCH
+                         * (seq + 1), vocab=cfg.vocab, seed=SEED)
+        ds = TokenDataset(corpus, seq, TRAIN_BATCH)
+
+        def make_batch(step):
+            batch = make_frontend_batch(ds.batch(step), cfg,
+                                        np.random.default_rng(SEED + step))
+            return {key: torch.as_tensor(val).to(dev)
+                    for key, val in batch.items()}
+
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        out["params"] = sum(t.numel() for t in tree_leaves(params))
+        log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+            f"{cfg.vocab}; {out['params']:,} parameters "
+            f"(ArchConfig.param_count {out['config_param_count']:,})")
+        batch0 = make_batch(0)
+        torch.cuda.reset_peak_memory_stats()
+
+        loss_p, _, grads = grads_with_accum(make_loss_fn(cfg, "ref"), params,
+                                            batch0, TRAIN_ACCUM)
+        out.update(plain_step0_loss=float(loss_p),
+                   plain_step0_grad_norm=float(global_norm(grads)))
+        del grads
+
+        loss_fn = make_loss_fn(cfg)
+        loss_a, _, grads_a = counted(ops, launches, lambda: grads_with_accum(
+            loss_fn, params, batch0, TRAIN_ACCUM))
+        per_step = counted.last
+        grads_b = grads_with_accum(loss_fn, params, batch0, TRAIN_ACCUM)[2]
+        differ = [path for (path, a), (_, b) in zip(tree_paths(grads_a),
+                                                    tree_paths(grads_b))
+                  if not torch.equal(a, b)]
+        out.update(step0_grads_differ=differ,
+                   step0_grad_digest=tree_digest(tree_paths(grads_a)),
+                   launches_per_step={k: per_step[k] for k in FLASH_KERNELS})
+        del grads_b
+        require(not differ, f"{arch} training: the gradients of one batch "
+                f"differ between two runs in {differ}")
+        want = {"flash_attention": 0,
+                "flash_attention_fwd": 2 * cfg.n_layers * TRAIN_ACCUM,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_ACCUM}
+        require(out["launches_per_step"] == want,
+                f"{arch} training: a step's gradients launched "
+                f"{out['launches_per_step']}, not {want}")
+
+        # Step 0 is the update by those gradients; then the timed steps.
+        opt = make_optimizer(OptimizerConfig(
+            name=cfg.optimizer, lr=cfg.learning_rate, warmup_steps=0,
+            total_steps=FAMILY_STEPS, weight_decay=cfg.weight_decay,
+            grad_clip=cfg.grad_clip))
+        train_step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
+        p, o, metrics = opt.update(grads_a, opt.init(params), params, 0)
+        state = {"params": p, "opt": o}
+        history = [{"loss": float(loss_a),
+                    **{k: float(v) for k, v in metrics.items()}}]
+        del grads_a
+        step_s = []
+
+        def one(step):
+            p, o, metrics = train_step(state["params"], state["opt"],
+                                       make_batch(step), step)
+            state.update(params=p, opt=o)
+            return metrics
+
+        def run_steps():
+            for step in range(1, FAMILY_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = one(step)
+                history.append({k: float(v) for k, v in metrics.items()})
+                step_s.append(time.perf_counter() - t0)
+                log(f"{arch} step {step}: loss {history[-1]['loss']:.6f} "
+                    f"grad_norm {history[-1]['grad_norm']:.6f} "
+                    f"{step_s[-1]:.3f} s")
+
+        counted(ops, launches, run_steps)
+        counts = counted.last
+        losses = [h_["loss"] for h_ in history]
+        norms = [h_["grad_norm"] for h_ in history]
+        step_med = statistics.median(step_s)
+        out.update(losses=losses, grad_norms=norms, step_s=step_s,
+                   step_median_s=step_med,
+                   tokens_per_s=TRAIN_BATCH * seq / step_med,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        require(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+                f"{arch} training: a loss is not finite: {losses} {norms}")
+        require(all(counts[k] == want[k] * (FAMILY_STEPS - 1)
+                    for k in FLASH_KERNELS),
+                f"{arch} training: the steps launched {counts}")
+        for key, ref_val in (("loss", out["plain_step0_loss"]),
+                             ("grad_norm", out["plain_step0_grad_norm"])):
+            got = history[0][key]
+            rtol = LOSS_RTOL if key == "loss" else GRAD_NORM_RTOL
+            require(abs(got - ref_val) <= rtol * abs(ref_val),
+                    f"{arch} training: step 0 {key} {got} (kernels) vs "
+                    f"{ref_val} (plain) over {rtol} relative")
+
+        # One more step under the profiler: the device's idle share against
+        # the timed steps' median.
+        out["device_busy_ms"] = "not measured"
+        prof = profile_step(lambda: one(FAMILY_STEPS), top=12, warm=False)
+        if prof is not None:
+            out.update(device_busy_ms=prof["busy_ms"],
+                       device_idle_share=1.0 - prof["busy_ms"]
+                       / (step_med * 1e3),
+                       kernels_per_step=prof["kernels"], top=prof["top"])
+        del state, params, batch0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_hymba_serving(dev):
+    """Phase 12: hymba-1.5b at full size (random weights from a seeded
+    generator) through ``dense_generate`` (bf16 activations), and the
+    full-forward contract at float32 activations with the same weights.
+    Returns (the phase's numbers, the launch counts of its runs)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_tree, tree_leaves
+
+    cfg = get_config(HYMBA)
+    launches = {k: 0 for k in ops.launch_counts()}
+    params = lm.init_model(cfg, seed=SEED, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (HYMBA_BATCH, HYMBA_PROMPT)),
+                              dtype=torch.int32, device=dev)
+    max_len = HYMBA_PROMPT + HYMBA_NEW
+    out = dict(params=n_params, batch=HYMBA_BATCH, prompt=HYMBA_PROMPT,
+               new_tokens=HYMBA_NEW, dtype=cfg.dtype)
+
+    t0 = time.perf_counter()
+    toks = counted(ops, launches, lambda: dense_generate(
+        cfg, params, prompts, HYMBA_NEW, max_len=max_len))
+    secs = time.perf_counter() - t0
+    require(toks.shape == (HYMBA_BATCH, HYMBA_NEW)
+            and int(toks.max()) < cfg.vocab and int(toks.min()) >= 0,
+            f"serve {HYMBA}: generated {toks.shape}, ids out of the vocab")
+    out.update(generate_s=secs, tokens_per_s=HYMBA_BATCH * HYMBA_NEW / secs,
+               sample=toks[0, :16].tolist(), launches=counted.last)
+
+    with torch.no_grad():
+        def prefill():
+            cache = lm.init_cache(cfg, HYMBA_BATCH, max_len, device=dev)
+            return lm.prefill(params, {"tokens": prompts}, cache, cfg)
+
+        logits, cache = prefill()
+        require(bool(torch.isfinite(logits).all()),
+                f"serve {HYMBA}: prefill logits are not finite")
+        prefill_ms = statistics.median(sync_ms(prefill) for _ in range(3))
+        tok = torch.argmax(logits[:, 0, :cfg.vocab], dim=-1)[:, None]
+
+        def step():
+            return lm.decode_step(params, tok, cache, HYMBA_PROMPT, cfg)
+
+        decode_ms = statistics.median(sync_ms(step) for _ in range(5))
+        out.update(prefill_ms=prefill_ms,
+                   prefill_tokens_per_s=HYMBA_BATCH * HYMBA_PROMPT
+                   / prefill_ms * 1e3,
+                   decode_step_ms=decode_ms,
+                   decode_tokens_per_s=HYMBA_BATCH / decode_ms * 1e3,
+                   device_busy_ms="not measured")
+        prof = profile_step(step, top=8)
+        if prof is not None:
+            out.update(device_busy_ms=prof["busy_ms"],
+                       device_idle_share=1.0 - prof["busy_ms"] / decode_ms,
+                       kernels_per_decode_step=prof["kernels"],
+                       top=prof["top"])
+        del cache, logits
+
+        # test_arch_smoke.py's contract at full size: prefill, then one
+        # decode step a token, against one full forward over the same
+        # tokens (the flash kernels, the SIMT route at float32).  Its
+        # tolerance is set for float32 activations, so the check runs the
+        # same weights with dtype float32.
+        fcfg = dataclasses.replace(cfg, dtype="float32")
+        total = CONTRACT_PROMPT + CONTRACT_NEW
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                              (CONTRACT_BATCH, total)),
+                                 device=dev)
+
+        def full_forward():
+            x = lm.embed_tokens(params, {"tokens": tokens}, fcfg)
+            positions = torch.arange(total, device=dev)
+            flags = lm.global_flags(fcfg)
+            for i in range(fcfg.n_layers):
+                lp = map_tree(lambda t: t[i], params["layers"])
+                x, _ = lm._block_train(x, lp, fcfg, bool(flags[i]),
+                                       positions, "cuda")
+            return lm._logits(params, x, fcfg)
+
+        full = counted(ops, launches, full_forward)
+        out["contract_launches"] = {k: v for k, v in counted.last.items()
+                                    if v}
+        cache = lm.init_cache(fcfg, CONTRACT_BATCH, total, device=dev)
+        lg, cache = lm.prefill(params, {"tokens": tokens[:, :CONTRACT_PROMPT]},
+                               cache, fcfg)
+        errs = [float((lg[:, 0] - full[:, CONTRACT_PROMPT - 1]).abs().max())]
+        for t in range(CONTRACT_PROMPT, total):
+            lg, cache = lm.decode_step(params, tokens[:, t:t + 1], cache, t,
+                                       fcfg)
+            errs.append(float((lg - full[:, t]).abs().max()))
+        out.update(contract_max_err=max(errs), contract_prefill_err=errs[0],
+                   contract_tokens=f"{CONTRACT_BATCH} x ({CONTRACT_PROMPT} "
+                   f"+ {CONTRACT_NEW})",
+                   contract_logit_absmax=float(full.abs().max()))
+        require(out["contract_launches"].get("flash_attention", 0)
+                == fcfg.n_layers,
+                f"serve {HYMBA}: the full forward launched "
+                f"{out['contract_launches']}")
+        require(max(errs) < CONTRACT_TOL,
+                f"serve {HYMBA}: prefill plus decode against the full "
+                f"forward: max abs err {max(errs)} over {CONTRACT_TOL}")
+        del full, cache, lg
+    del params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2554,6 +2946,35 @@ def main() -> int:
         f"{summary.get('device_idle_share', 'not measured')}, launches per "
         f"step {summary['launches_per_step']}")
     phase_s["moe training"] = time.perf_counter() - t0
+
+    # -- phases 10 and 11: hymba-1.5b and hubert-xlarge training, full size ---
+    for arch in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        summary, counts = run_family_training(arch, dev)
+        for k, v in counts.items():
+            launches[k] += v
+        log(f"training {arch} full size ({smi}): " + json.dumps(summary))
+        log(f"{arch} training: step {summary['step_median_s']:.3f} s median, "
+            f"{summary['tokens_per_s']:.1f} tokens/s, peak "
+            f"{summary['peak_memory_gb']:.2f} GB, device idle share "
+            f"{summary.get('device_idle_share', 'not measured')}, flash "
+            f"launches per step {summary['launches_per_step']}")
+        phase_s[f"{arch} training"] = time.perf_counter() - t0
+
+    # -- phase 12: hymba-1.5b dense generation, full size ---------------------
+    t0 = time.perf_counter()
+    summary, counts = run_hymba_serving(dev)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"serve {HYMBA} ({smi}): " + json.dumps(summary))
+    log(f"serve {HYMBA}: prefill {summary['prefill_tokens_per_s']:.1f} "
+        f"tokens/s, decode {summary['decode_tokens_per_s']:.1f} tokens/s, "
+        f"device idle share of a decode step "
+        f"{summary.get('device_idle_share', 'not measured')}, kernels a "
+        f"decode step {summary.get('kernels_per_decode_step', 'not measured')}"
+        f"; prefill + decode vs full forward max abs err "
+        f"{summary['contract_max_err']:.3e}")
+    phase_s[f"{HYMBA} serving"] = time.perf_counter() - t0
     phase_s["total"] = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(phase_s))
     log(f"profiler: {len(PROFILER_MISSES)} device_ms values taken by CUDA "

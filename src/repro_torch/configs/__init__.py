@@ -1,12 +1,10 @@
-"""Architecture registry of the port: the configurations its slices serve.
+"""Architecture registry of the port: the reference's ten families.
 
-A copy of the parts of ``repro.configs`` the port's slices need: the
-``yi-6b`` entry (paged and speculative serving, dense training, and the
-Mamba block at its width), the ``rwkv6-3b`` entry (recurrent serving),
-the ``olmoe-1b-7b`` entry (MoE training and dense generation), the shape
-cells ``SHAPES`` (training takes ``train_4k``'s sequence length) and
-:func:`smoke_config`, which reduces any of them to a CPU-test size
-exactly as the reference does.
+A copy of ``repro.configs``: the ten assigned configurations in the
+reference's registry order (so ``ALL_ARCH_NAMES`` is the reference's),
+the shape cells ``SHAPES`` (training takes ``train_4k``'s sequence
+length), :func:`smoke_config`, which reduces any of them to a CPU-test
+size exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -14,12 +12,32 @@ import dataclasses
 from typing import Dict, List
 
 from .base import SHAPES, ArchConfig, ShapeConfig
+from .arctic_480b import CONFIG as _arctic_480b
+from .gemma3_27b import CONFIG as _gemma3_27b
+from .hubert_xlarge import CONFIG as _hubert_xlarge
+from .hymba_1_5b import CONFIG as _hymba_1_5b
+from .internvl2_1b import CONFIG as _internvl2_1b
 from .olmoe_1b_7b import CONFIG as _olmoe_1b_7b
+from .qwen1_5_32b import CONFIG as _qwen1_5_32b
+from .qwen2_5_14b import CONFIG as _qwen2_5_14b
 from .rwkv6_3b import CONFIG as _rwkv6_3b
 from .yi_6b import CONFIG as _yi_6b
 
 ARCHS: Dict[str, ArchConfig] = {
-    c.name: c for c in [_yi_6b, _rwkv6_3b, _olmoe_1b_7b]}
+    c.name: c
+    for c in [
+        _internvl2_1b,
+        _qwen1_5_32b,
+        _yi_6b,
+        _qwen2_5_14b,
+        _gemma3_27b,
+        _rwkv6_3b,
+        _hubert_xlarge,
+        _hymba_1_5b,
+        _olmoe_1b_7b,
+        _arctic_480b,
+    ]
+}
 
 ALL_ARCH_NAMES: List[str] = list(ARCHS)
 
@@ -59,3 +77,4 @@ def smoke_config(name: str) -> ArchConfig:
         remat=False,
     )
     return dataclasses.replace(c, **repl)
+

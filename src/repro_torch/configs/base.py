@@ -2,9 +2,9 @@
 ``ArchConfig``, ``ShapeConfig`` and ``SHAPES``).
 
 The port keeps its own copy so that it imports nothing of ``repro``.  The
-fields are the reference's, so a configuration means the same model in
-both packages; ``compute_dtype`` and ``param_torch_dtype`` map to torch
-dtypes.
+fields and ``param_count`` are the reference's, so a configuration means
+the same model in both packages; ``compute_dtype`` and
+``param_torch_dtype`` map to torch dtypes.
 """
 from __future__ import annotations
 
@@ -107,6 +107,26 @@ class ArchConfig:
     @property
     def compute_dtype(self):
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings included once if tied),
+        by the reference's formula."""
+        d, f, v, l = self.d_model, self.d_ff, self.vocab, self.n_layers
+        h, kvh, hd = self.n_heads, self.n_kv_heads, self.hd
+        attn = d * h * hd + 2 * d * kvh * hd + h * hd * d
+        if self.ssm == "rwkv6":
+            per_layer = 4 * d * d + 2 * d * f // 2 + d * f
+        else:
+            mlp = (3 if self.glu else 2) * d * f
+            if self.n_experts:
+                moe = self.n_experts * (3 if self.glu else 2) * d * f
+                mlp = (moe + (3 * d * f if self.dense_residual else 0)
+                       + d * self.n_experts)
+            per_layer = attn + mlp
+            if self.ssm == "hymba":
+                per_layer += 2 * d * 2 * d + 2 * d * self.ssm_state * 2
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return l * per_layer + emb
 
     @property
     def param_torch_dtype(self):

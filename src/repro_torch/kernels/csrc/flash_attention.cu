@@ -62,8 +62,17 @@
 // - dq pass: a block per 128 query rows over K/V tiles of 64 keys.
 // Tiles wholly invisible to a warpgroup are skipped (the reference's
 // pl.when(visible)); the ring still passes them.
+// Head dims 64 and 128 fill one and two boxes.  D = 80 (hubert-xlarge's
+// 1280 / 16) runs the D = 128 layout: a row is 160 bytes, wider than one
+// 128-byte swizzle span, so the tensor maps cover the true 80 columns and
+// the second box of each row, columns 64..127, is filled by TMA's
+// out-of-bounds zeros.  q·kᵀ and do·vᵀ take the 5 k-steps of the true D;
+// p·v, pᵀ·do, dsᵀ·q and ds·k run at N = 128 (the zero columns add exact
+// zeros, and the stores drop them), so those products do 128/80 of the
+// work they need.  The softmax scale is the caller's (1/√80).
 //
-// fp32: the first version's SIMT kernels, unchanged.  A single-pass
+// fp32: the first version's SIMT kernels, unchanged (D = 80 is 5 columns a
+// thread where D = 64 is 4).  A single-pass
 // tensor-core product cannot meet the fp32 tolerance of 2e-5, and nothing
 // on the training path is fp32.  256 threads per block as a 16 x 16 grid;
 // thread (ty, tx) owns rows ty*4 .. ty*4+3 of a 64-row tile and the
@@ -81,6 +90,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -537,6 +548,11 @@ constexpr int kConsumerRegs = 240;
 constexpr int kPromote = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The width a D-column row takes in the tiles: whole 64-column boxes.
+__host__ __device__ constexpr int width(int D) {
+  return (D + 63) / 64 * 64;
+}
+
 // e^x as the SFU's 2^x (flushing results below 2^-126 to zero).
 __device__ __forceinline__ float exp_(float x) {
   float y;
@@ -645,19 +661,21 @@ __device__ __forceinline__ void init_barriers(uint64_t* bars, int n_full,
   __syncthreads();
 }
 
-// Rows [r0, r0+8) of an m64nD accumulator `acc` (two rows a thread), each
-// times `mul[r]`, into bf16 rows of `out` (element row stride `rs`).
-template <int N>
+// Rows [r0, r0+8) of an m64nN accumulator `acc` (two rows a thread), each
+// times `mul[r]`, into bf16 rows of `out` (element row stride `rs`): the
+// first kCols columns (the rest are a padded tile's zeros).
+template <int kCols, int N>
 __device__ __forceinline__ void store_rows(const float (&acc)[N],
                                            __nv_bfloat16* out, long long rs,
                                            int row, int n_rows, int lane,
                                            const float* mul) {
+  static_assert(kCols % 8 == 0 && kCols <= 2 * N, "columns of the tile");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row + 8 * r >= n_rows) continue;
     __nv_bfloat16* o = out + (long long)(row + 8 * r) * rs;
 #pragma unroll
-    for (int n = 0; n < N / 4; ++n) {
+    for (int n = 0; n < kCols / 8; ++n) {
       const int i = 4 * n + 2 * r;
       *reinterpret_cast<uint32_t*>(o + frag_col(i, lane)) =
           pack_bf16(acc[i] * mul[r], acc[i + 1] * mul[r]);
@@ -825,7 +843,8 @@ struct FwdParams {
 template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ FwdParams p) {
-  constexpr int NB = D / 64;
+  constexpr int W = width(D);
+  constexpr int NB = W / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align1024(smem_raw);          // [NB][128 rows][128 B]
   uint8_t* k_s = q_s + NB * kRows * 128;       // [stage][NB][64][128 B]
@@ -872,9 +891,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = threadIdx.x & 31;
     const int r_lo = q0 + wg * 64;
     const int row0 = r_lo + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-    float o[D / 2];
+    float o[W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < W / 2; ++i) o[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
@@ -884,7 +903,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // p·v is a fresh tensor-core sum of 8 steps, added into o in fp32 with
     // round to nearest: one chain over all keys would carry the tensor
     // cores' rounding over 512 steps.
-    float pv[D / 2];
+    float pv[W / 2];
     int first, end;
     visible_span(p.mk, r_lo, kt0, n_kt, &first, &end);
     for (int it = 0; it < first; ++it) pass_tile(k_full, v_full, empty, it);
@@ -937,7 +956,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i)
+        for (int i = 0; i < W / 2; ++i)
           o[i] = (o[i] + pv[i]) * alpha[(i >> 1) & 1];
         pst = st;
       }
@@ -948,7 +967,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(pv);
       release(&empty[pst]);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] += pv[i];
+      for (int i = 0; i < W / 2; ++i) o[i] += pv[i];
     }
     for (int it = end; it < n_kt; ++it) pass_tile(k_full, v_full, empty, it);
 
@@ -961,8 +980,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         p.lse[((long long)b * p.H + h) * p.mk.Sq + row0 + 8 * r] =
             m[r] + logf(li);
     }
-    store_rows(o, p.o + b * p.vo.b + h * p.vo.h, p.vo.s, row0, p.mk.Sq, lane,
-               inv);
+    store_rows<D>(o, p.o + b * p.vo.b + h * p.vo.h, p.vo.s, row0, p.mk.Sq,
+                  lane, inv);
   }
 }
 
@@ -973,7 +992,8 @@ struct BwdParams {
   __nv_bfloat16* dq;  // dq pass
   __nv_bfloat16* dk;  // dk/dv pass
   __nv_bfloat16* dv;
-  float4* partial;    // dk/dv pass: fp32 sums, kRows * D * 2 floats a block
+  float4* partial;    // dk/dv pass: fp32 sums, kRows * width(D) * 2 floats
+                      // a block
   View vdq, vdk, vdv;
   int B, H, KVH, n_tiles;
   Mask mk;
@@ -987,7 +1007,8 @@ struct BwdParams {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ BwdParams p) {
-  constexpr int NB = D / 64;
+  constexpr int W = width(D);
+  constexpr int NB = W / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* k_s = align1024(smem_raw);          // [NB][128 rows][128 B]
   uint8_t* v_s = k_s + NB * kRows * 128;
@@ -1049,14 +1070,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int key0 = c_lo + (t >> 5) * 16 + (lane >> 2);
     float* lse_w = lse_s + wg * kStep;
     float* dl_w = dl_s + wg * kStep;
-    float dk[D / 2], dv[D / 2];
+    float dk[W / 2], dv[W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) {
+    for (int i = 0; i < W / 2; ++i) {
       dk[i] = 0.f;
       dv[i] = 0.f;
     }
-    // This warpgroup's fp32 partials: D / 4 float4 a thread, thread-minor.
-    float4* part = p.partial + (blockIdx.x * kConsumers + wg) * (D / 4) * 128;
+    // This warpgroup's fp32 partials: W / 4 float4 a thread, thread-minor.
+    float4* part = p.partial + (blockIdx.x * kConsumers + wg) * (W / 4) * 128;
     int chunks = 0;  // sums moved into `part` so far
     mbar_wait(kv_full, 0);
 
@@ -1129,10 +1150,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (chunks > 0) promote(dk, dv, part, t, true, /*take=*/true);
 
     const float one[2] = {1.f, 1.f};
-    store_rows(dk, p.dk + b * p.vdk.b + g * p.vdk.h, p.vdk.s, key0,
-               p.mk.Skv, lane, one);
-    store_rows(dv, p.dv + b * p.vdv.b + g * p.vdv.h, p.vdv.s, key0,
-               p.mk.Skv, lane, one);
+    store_rows<D>(dk, p.dk + b * p.vdk.b + g * p.vdk.h, p.vdk.s, key0,
+                  p.mk.Skv, lane, one);
+    store_rows<D>(dv, p.dv + b * p.vdv.b + g * p.vdv.h, p.vdv.s, key0,
+                  p.mk.Skv, lane, one);
   }
 }
 
@@ -1142,7 +1163,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ BwdParams p) {
-  constexpr int NB = D / 64;
+  constexpr int W = width(D);
+  constexpr int NB = W / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align1024(smem_raw);          // [NB][128 rows][128 B]
   uint8_t* do_s = q_s + NB * kRows * 128;
@@ -1200,9 +1222,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       lse_r[r] = in ? p.lse[row_off + row0 + 8 * r] : 0.f;
       dl_r[r] = in ? p.delta[row_off + row0 + 8 * r] : 0.f;
     }
-    float dq[D / 2];
+    float dq[W / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < W / 2; ++i) dq[i] = 0.f;
     mbar_wait(q_full, 0);
 
     // Software pipeline as in the forward: tile j's s and dp are taken
@@ -1269,8 +1291,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int it = end; it < n_kt; ++it) pass_tile(k_full, v_full, empty, it);
 
     const float one[2] = {1.f, 1.f};
-    store_rows(dq, p.dq + b * p.vdq.b + h * p.vdq.h, p.vdq.s, row0, p.mk.Sq,
-               lane, one);
+    store_rows<D>(dq, p.dq + b * p.vdq.b + h * p.vdq.h, p.vdq.s, row0,
+                  p.mk.Sq, lane, one);
   }
 }
 
@@ -1348,10 +1370,11 @@ constexpr size_t kBarBytes = 8 * (1 + 3 * kStages);
 
 // Shared memory of each kernel, with room to align the tiles to 1024.
 constexpr size_t fwd_smem(int D) {
-  return 1024 + (D / 64) * (kRows * 128 + 2 * kStages * kBox) + kBarBytes;
+  return 1024 + (width(D) / 64) * (kRows * 128 + 2 * kStages * kBox) +
+         kBarBytes;
 }
 constexpr size_t dq_smem(int D) {
-  return 1024 + (D / 64) * (2 * kRows * 128 + 2 * kStages * kBox) +
+  return 1024 + (width(D) / 64) * (2 * kRows * 128 + 2 * kStages * kBox) +
          kBarBytes;
 }
 constexpr size_t dkv_smem(int D) {
@@ -1464,6 +1487,21 @@ int launch_delta(const void* dout, const void* o, float* dl,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Runs `f` with the head dim as a compile-time constant: 64, 80 or 128
+// (the wrapper raises on any other).
+template <typename F>
+int with_head_dim(int D, F f) {
+  switch (D) {
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 80:
+      return f(std::integral_constant<int, 80>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool kLse>
 int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse,
               const long long* strides, int B, int H, int KVH, int Sq,
@@ -1473,18 +1511,14 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse,
   const Mask mk{Sq, Skv, causal, has_window, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (bf16) {
-    if (D == 64)
-      return tc::fwd<64, kLse>(q, k, v, o, l, strides, B, H, KVH, mk, scale,
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (bf16)
+      return tc::fwd<kD, kLse>(q, k, v, o, l, strides, B, H, KVH, mk, scale,
                                s);
-    return tc::fwd<128, kLse>(q, k, v, o, l, strides, B, H, KVH, mk, scale,
-                              s);
-  }
-  if (D == 64)
-    return fwd<float, 64, kLse>(q, k, v, o, l, strides, B, H, KVH, mk, scale,
+    return fwd<float, kD, kLse>(q, k, v, o, l, strides, B, H, KVH, mk, scale,
                                 s);
-  return fwd<float, 128, kLse>(q, k, v, o, l, strides, B, H, KVH, mk, scale,
-                               s);
+  });
 }
 
 }  // namespace
@@ -1492,7 +1526,7 @@ int fwd_entry(const void* q, const void* k, const void* v, void* o, void* lse,
 // Argument conventions shared by the entries below.  Pointers to the (B,
 // heads, S, D) tensors; `strides` holds the (b, h, s) element strides of
 // each tensor in argument order (the last axis of every one is
-// contiguous); D is 64 or 128 (the wrapper raises on any other);
+// contiguous); D is 64, 80 or 128 (the wrapper raises on any other);
 // has_window = 0 ignores `window`; bf16 != 0 means every tensor but lse
 // and delta is bf16 (the tensor-core route: q, k, v and do 16-byte aligned
 // with strides of a multiple of 8 elements, as TMA needs), else fp32 (the
@@ -1523,8 +1557,9 @@ extern "C" int repro_flash_attention_lse(const void* q, const void* k,
 
 // Kernel 10, pass 1: delta = rowsum(do·o) into `delta`, then dk, dv.  lse
 // and delta (B, H, Sq) fp32, contiguous.  `partial`: an fp32 buffer of
-// B * KVH * ceil(Skv / 128) * 128 * D * 2 floats for the bf16 route (the
-// dk/dv sums of each block), unused by the fp32 one.  strides: q, k, v,
+// B * KVH * ceil(Skv / 128) * 128 * W * 2 floats for the bf16 route, W =
+// D rounded up to a multiple of 64 (the dk/dv sums of each block), unused
+// by the fp32 one.  strides: q, k, v,
 // do, o, dk, dv.
 extern "C" int repro_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1548,18 +1583,14 @@ extern "C" int repro_flash_attention_bwd_dkv(
   long long st[18];  // q, k, v, do, dk, dv
   for (int i = 0; i < 12; ++i) st[i] = strides[i];
   for (int i = 12; i < 18; ++i) st[i] = strides[i + 3];
-  if (bf16) {
-    if (D == 64)
-      return tc::dkv<64>(q, k, v, dout, l, dl, dk, dv, partial, st, B, H, KVH,
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (bf16)
+      return tc::dkv<kD>(q, k, v, dout, l, dl, dk, dv, partial, st, B, H, KVH,
                          mk, scale, s);
-    return tc::dkv<128>(q, k, v, dout, l, dl, dk, dv, partial, st, B, H, KVH,
-                        mk, scale, s);
-  }
-  if (D == 64)
-    return dkv<float, 64>(q, k, v, dout, l, dl, dk, dv, st, B, H, KVH, mk,
+    return dkv<float, kD>(q, k, v, dout, l, dl, dk, dv, st, B, H, KVH, mk,
                           scale, s);
-  return dkv<float, 128>(q, k, v, dout, l, dl, dk, dv, st, B, H, KVH, mk,
-                         scale, s);
+  });
 }
 
 // Kernel 10, pass 2: dq.  strides: q, k, v, do, dq.
@@ -1573,16 +1604,12 @@ extern "C" int repro_flash_attention_bwd_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (bf16) {
-    if (D == 64)
-      return tc::dq<64>(q, k, v, dout, l, dl, dqp, strides, B, H, KVH, mk,
+  return with_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (bf16)
+      return tc::dq<kD>(q, k, v, dout, l, dl, dqp, strides, B, H, KVH, mk,
                         scale, s);
-    return tc::dq<128>(q, k, v, dout, l, dl, dqp, strides, B, H, KVH, mk,
-                       scale, s);
-  }
-  if (D == 64)
-    return dq<float, 64>(q, k, v, dout, l, dl, dqp, strides, B, H, KVH, mk,
+    return dq<float, kD>(q, k, v, dout, l, dl, dqp, strides, B, H, KVH, mk,
                          scale, s);
-  return dq<float, 128>(q, k, v, dout, l, dl, dqp, strides, B, H, KVH, mk,
-                        scale, s);
+  });
 }

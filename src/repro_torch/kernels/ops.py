@@ -979,8 +979,14 @@ spmv_ell_panel_kernel.plan = None  # the plan of the last launch
 # ---------------------------------------------------------------------------
 
 _FLASH_DTYPES = (torch.float32, torch.bfloat16)
-_FLASH_HEAD_DIMS = (64, 128)
+_FLASH_HEAD_DIMS = (64, 80, 128)
 _DKV_KEYS = 128  # keys of a bf16 dk/dv block (flash_attention.cu tc::kRows)
+
+
+def _tile_width(d: int) -> int:
+    """Columns a row of head dim ``d`` takes in the bf16 kernels' tiles:
+    whole 64-column boxes (``tc::width``; D = 80 runs padded to 128)."""
+    return -(-d // 64) * 64
 
 
 def _flash_shapes(q, k, v, name):
@@ -1101,11 +1107,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = lse.contiguous()
     delta = torch.empty_like(lse)  # written by the dk/dv entry
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    partial = None  # the bf16 dk/dv pass's fp32 sums: 2 * D per key row
+    partial = None  # the bf16 dk/dv pass's fp32 sums: 2 tile widths a key
     if q.dtype == torch.bfloat16:
         b, _, kvh, _, skv, d = shapes
         rows = b * kvh * -(-skv // _DKV_KEYS) * _DKV_KEYS
-        partial = torch.empty(rows * 2 * d, dtype=torch.float32,
+        partial = torch.empty(rows * 2 * _tile_width(d), dtype=torch.float32,
                               device=q.device)
     tail = _flash_tail(shapes, causal, window, scale, q)
     _launch("repro_flash_attention_bwd_dkv", _ptr(q), _ptr(k), _ptr(v),
@@ -1156,7 +1162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K/V to the block and lets the padded keys into the softmax).
     ``block_q``/``block_k`` are the reference's tiles, kept for its
     signature; the kernels pick their own 64-row tiles, so the two only
-    have to be positive.  Head dims 64 and 128, fp32 or bf16.
+    have to be positive.  Head dims 64, 80 and 128, fp32 or bf16.
     """
     _check(block_q > 0 and block_k > 0,
            f"flash_attention: blocks {block_q} x {block_k} must be positive")

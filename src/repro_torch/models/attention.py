@@ -36,7 +36,7 @@ from ..kernels import ops, ref
 from .common import Param, apply_rope
 
 __all__ = ["attention_decode", "attention_defs", "attention_fwd",
-           "attention_prefill", "init_kv_cache"]
+           "attention_prefill", "cache_dims", "init_kv_cache"]
 
 #: Query rows a prefill attends at once (the reference's ``kv_chunk``).
 PREFILL_CHUNK = 1024
@@ -130,6 +130,16 @@ def init_kv_cache(cfg: ArchConfig, kv_heads: int, batch: int, max_len: int,
         }
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def cache_dims(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The reference's logical dims of each cache leaf (for sharding,
+    ROADMAP A9)."""
+    dims4 = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+    dims3 = ("cache_batch", "cache_seq", "kv_heads")
+    if cfg.cache_dtype == "int8":
+        return {"k": dims4, "v": dims4, "k_scale": dims3, "v_scale": dims3}
+    return {"k": dims4, "v": dims4}
 
 
 def _store_kv(cache, k_new: torch.Tensor, v_new: torch.Tensor, pos: int,

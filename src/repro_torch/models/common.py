@@ -2,8 +2,9 @@
 
 Parameter declarations and their initialization, :func:`rms_norm`,
 ``ACTIVATIONS``, RoPE (:func:`rope_freqs`, :func:`apply_rope`), the
-decayed recurrence of the recurrent blocks (:func:`decayed_cumsum`) and
-the training loss's :func:`chunked_softmax_xent`.  The reference's logical
+decayed recurrence of the recurrent blocks (:func:`decayed_cumsum`, one
+step at a time, and :func:`decayed_scan`, a chunk at once in log-depth)
+and the training loss's :func:`chunked_softmax_xent`.  The reference's logical
 dimension names exist for sharding, which the port leaves out, so a
 :class:`Param` here is a shape, an initializer and a scale.  Parameter
 trees are nested ``dict``s of tensors.
@@ -25,6 +26,7 @@ __all__ = [
     "cast_tree",
     "chunked_softmax_xent",
     "decayed_cumsum",
+    "decayed_scan",
     "init_params",
     "map_tree",
     "rms_norm",
@@ -230,3 +232,26 @@ def decayed_cumsum(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
         h = a[t] * h + b[t]
         hs.append(h)
     return torch.stack(hs), h
+
+
+def decayed_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor
+                 ) -> torch.Tensor:
+    """The recurrence ``h_t = a_t * h_{t-1} + b_t`` from ``h_{-1} = h0``,
+    solved for every t of the leading axis at once: h (T, ...).
+
+    a (T, ...) broadcastable against b (T, ...).  h0 is folded into the
+    first step, then a log-depth doubling scan (Hillis-Steele) composes
+    the affine maps in ceil(log2 T) rounds of whole-tensor products: the
+    counterpart of the reference's ``jax.lax.associative_scan`` with the
+    same combine, ``(a1, b1) then (a2, b2) = (a1 * a2, b1 * a2 + b2)``, on
+    another tree, so the sums round differently.  For T = 1 it is
+    ``a * h0 + b``, the operations of :func:`decayed_cumsum`'s step.
+    """
+    b = torch.cat([a[:1] * h0 + b[:1], b[1:]])
+    t, o = a.shape[0], 1
+    while o < t:
+        b = torch.cat([b[:o], torch.addcmul(b[o:], a[o:], b[:-o])])
+        if 2 * o < t:  # the last round needs no longer products of a
+            a = torch.cat([a[:o], a[:-o] * a[o:]])
+        o *= 2
+    return b

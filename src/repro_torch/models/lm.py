@@ -1,15 +1,19 @@
-"""Language-model assembly (from ``repro.models.lm``).
+"""Language-model assembly for all ten families (from ``repro.models.lm``).
 
-The transformer family, dense or Mixture-of-Experts: parameter
-declarations (``layer_defs``, ``model_defs``), their seeded initialization
-on the card (:func:`init_model`), the reference's own weights carried over
-leaf for leaf (:func:`lm_params_from_numpy`), the training loss
+Parameter declarations (``layer_defs``, ``model_defs``), their seeded
+initialization on the card (:func:`init_model`), the reference's own
+weights carried over leaf for leaf (:func:`lm_params_from_numpy`), w8a16
+MLP weights (:func:`quantize_mlp_weights`), the training loss
 (:func:`train_loss`, with the MoE load-balance loss summed over layers)
-with its embedding and output head, and the dense inference path over a
-contiguous KV cache (:func:`init_cache`, :func:`prefill`,
-:func:`decode_step`, :func:`extend_step`, :func:`prefill_chunked`), which
-is how the reference serves an MoE model.  The recurrent and hybrid
-families and the audio/vision front ends raise, naming ROADMAP A7.
+with its embedding, audio/vision front ends and output head, and the
+dense inference path over a contiguous cache (:func:`init_cache`,
+:func:`prefill`, :func:`decode_step`, :func:`extend_step`,
+:func:`prefill_chunked`), which is how the reference serves every
+family.  Each family has its block: the transformer (dense or
+Mixture-of-Experts), rwkv6 (``models.rwkv6``) and hymba's parallel
+attention and Mamba heads (``models.mamba``); the recurrent scans run
+their chunked forms here.  Which layers attend globally is
+:func:`global_flags`, as in the reference.
 
 Layers are stacked ``(L, ...)`` as in the reference and the forward loop
 slices layer ``i``; under ``cfg.remat`` each layer runs inside
@@ -21,8 +25,9 @@ with no counterpart in eager PyTorch, so it is left out.
 
 Parameter trees are nested dicts of tensors under the reference's paths
 (``['layers']['attn']['wq']``, ``['embed']``, ...), the form every
-training function takes.  The cache is a dict of ``(L, B, max_len, ...)``
-tensors; a layer writes its slice in place, where the reference carries
+training function takes.  The cache is a nested dict of ``(L, B, ...)``
+tensors (KV ``(L, B, max_len, KVH, hd)``, recurrent states ``(L, B,
+...)``); a layer writes its slice in place, where the reference carries
 the stack through its scan and updates it functionally.
 """
 from __future__ import annotations
@@ -36,14 +41,18 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import mamba as mamba_mod
+from . import rwkv6 as rwkv_mod
 from .common import (Param, cast_tree, chunked_softmax_xent, init_params,
                      map_tree, rms_norm, stack_layer_defs, tree_paths)
-from .mlp import mlp_defs, mlp_fwd, moe_defs, moe_fwd
+from .mlp import MLP_WEIGHT_NAMES, mlp_defs, mlp_fwd, moe_defs, moe_fwd
 
 __all__ = [
+    "cache_dims_tree",
     "decode_step",
     "embed_tokens",
     "extend_step",
+    "global_flags",
     "init_cache",
     "init_model",
     "layer_defs",
@@ -52,21 +61,9 @@ __all__ = [
     "output_weight",
     "prefill",
     "prefill_chunked",
+    "quantize_mlp_weights",
     "train_loss",
 ]
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    """Raise for the families whose model is not ported yet."""
-    what = None
-    if cfg.ssm is not None:
-        what = f"the {cfg.ssm} family"
-    elif cfg.modality != "text":
-        what = f"the {cfg.modality} front end"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP A7c); the port "
-            f"runs the transformer family, dense or MoE")
 
 
 # ---------------------------------------------------------------------------
@@ -75,27 +72,37 @@ def _check_family(cfg: ArchConfig) -> None:
 
 
 def layer_defs(cfg: ArchConfig, q_heads: int, kv_heads: int) -> Dict[str, Any]:
-    _check_family(cfg)
     d = cfg.d_model
+    norms = {"ln1": Param((d,), init="zeros"),
+             "ln2": Param((d,), init="zeros")}
+    if cfg.ssm == "rwkv6":
+        return {**rwkv_mod.rwkv_defs(cfg, q_heads), **norms}
+    if cfg.ssm == "hymba":
+        return {"hymba": mamba_mod.hymba_defs(cfg, q_heads, kv_heads),
+                "mlp": mlp_defs(cfg), **norms}
     block: Dict[str, Any] = {
         "attn": attn_mod.attention_defs(cfg, q_heads, kv_heads)}
     if cfg.n_experts:
         block["moe"] = moe_defs(cfg)
     else:
         block["mlp"] = mlp_defs(cfg)
-    return {**block, "ln1": Param((d,), init="zeros"),
-            "ln2": Param((d,), init="zeros")}
+    return {**block, **norms}
 
 
 def model_defs(cfg: ArchConfig, tp: int = 1) -> Dict[str, Any]:
     q_heads, kv_heads = cfg.heads_for_tp(tp)
+    if cfg.ssm == "rwkv6":
+        q_heads = rwkv_mod.rwkv_heads(cfg)
     vp = cfg.vocab_padded(tp)
     defs: Dict[str, Any] = {
         "layers": stack_layer_defs(layer_defs(cfg, q_heads, kv_heads),
                                    cfg.n_layers),
         "final_norm": Param((cfg.d_model,), init="zeros"),
-        "embed": Param((vp, cfg.d_model), init="embed"),
     }
+    if cfg.modality != "audio":
+        defs["embed"] = Param((vp, cfg.d_model), init="embed")
+    if cfg.modality in ("audio", "vlm"):
+        defs["frontend_proj"] = Param((cfg.frontend_dim, cfg.d_model))
     if not cfg.tie_embeddings:
         defs["head"] = Param((cfg.d_model, vp))
     return defs
@@ -137,6 +144,51 @@ def lm_params_from_numpy(tree, cfg: ArchConfig, device=None,
     return map_tree(carry, tree)
 
 
+def quantize_mlp_weights(params, cfg: ArchConfig):
+    """w8a16: every MLP / MoE weight leaf (``w_up``, ``w_gate``,
+    ``w_down`` under ``mlp``, ``moe`` or ``dense``) replaced by ``{'q':
+    int8, 'scale': float32}``, the reference's serving-side narrow
+    elements (qwen1.5-32b's ``serve_mlp_int8``).
+
+    Symmetric per-output-channel scales over axis -2 (the contracted one),
+    kept with that axis so dequantization broadcasts: ``amax / 127``
+    (1 where a channel is all zeros), codes ``round(w / scale)`` clipped to
+    ±127, bitwise the reference's codes and scales.  ``mlp._w`` reads
+    either form."""
+    def walk(tree, in_mlp=False):
+        if not isinstance(tree, dict):
+            return tree
+        out = {}
+        for k, v in tree.items():
+            if in_mlp and k in MLP_WEIGHT_NAMES and torch.is_tensor(v):
+                v32 = v.float()
+                amax = v32.abs().amax(dim=-2, keepdim=True)
+                scale = torch.where(amax > 0, amax / 127.0,
+                                    torch.ones_like(amax))
+                q = torch.clamp(torch.round(v32 / scale), -127, 127)
+                out[k] = {"q": q.to(torch.int8), "scale": scale}
+            else:
+                out[k] = walk(v, in_mlp or k in ("mlp", "moe", "dense"))
+        return out
+
+    return walk(params)
+
+
+def global_flags(cfg: ArchConfig) -> np.ndarray:
+    """Per-layer is-global-attention flags (float, the reference's).
+    hymba attends globally on layers {0, L/2, L-1} only, whatever
+    ``global_interval`` says; without an interval every layer is global
+    (a windowless model ignores the flag)."""
+    n = cfg.n_layers
+    if cfg.ssm == "hymba":
+        flags = np.zeros(n)
+        flags[[0, n // 2, n - 1]] = 1.0
+        return flags
+    if cfg.global_interval is None:
+        return np.ones(n)
+    return np.array([float(cfg.layer_is_global(i)) for i in range(n)])
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -154,17 +206,31 @@ def _block_train(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
                  positions: torch.Tensor, impl: str
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux loss)."""
-    a = attn_mod.attention_fwd(lp["attn"], rms_norm(x, lp["ln1"]), cfg,
-                               is_global, positions, impl=impl)
-    x = x + a
+    if cfg.ssm == "rwkv6":
+        x, _ = rwkv_mod.rwkv_block(lp, x, cfg, lp, chunk=rwkv_mod.CHUNK)
+        return x, x.new_zeros((), dtype=torch.float32)
+    if cfg.ssm == "hymba":
+        x = x + mamba_mod.hymba_block_fwd(lp["hymba"], rms_norm(x, lp["ln1"]),
+                                          cfg, is_global, positions, impl)
+    else:
+        x = x + attn_mod.attention_fwd(lp["attn"], rms_norm(x, lp["ln1"]),
+                                       cfg, is_global, positions, impl=impl)
     m, aux = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
     return x + m, aux
 
 
 def _block_prefill(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
                    cache, impl: str):
-    a, cache = attn_mod.attention_prefill(lp["attn"], rms_norm(x, lp["ln1"]),
-                                          cfg, is_global, cache)
+    """Returns (x, the layer's cache: the same tensors written in place,
+    or a recurrent state to be written)."""
+    if cfg.ssm == "rwkv6":
+        return rwkv_mod.rwkv_block(lp, x, cfg, lp, chunk=rwkv_mod.CHUNK)
+    if cfg.ssm == "hymba":
+        a, cache = mamba_mod.hymba_block_prefill(
+            lp["hymba"], rms_norm(x, lp["ln1"]), cfg, is_global, cache)
+    else:
+        a, cache = attn_mod.attention_prefill(
+            lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache)
     x = x + a
     m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
     return x + m, cache
@@ -172,22 +238,42 @@ def _block_prefill(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
 
 def _block_decode(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
                   cache, pos: int, impl: str):
-    a, cache = attn_mod.attention_decode(lp["attn"], rms_norm(x, lp["ln1"]),
-                                         cfg, is_global, cache, pos)
+    if cfg.ssm == "rwkv6":
+        return rwkv_mod.rwkv_block(lp, x, cfg, lp, state=cache,
+                                   chunk=rwkv_mod.CHUNK)
+    if cfg.ssm == "hymba":
+        a, cache = mamba_mod.hymba_block_decode(
+            lp["hymba"], rms_norm(x, lp["ln1"]), cfg, is_global, cache, pos)
+    else:
+        a, cache = attn_mod.attention_decode(
+            lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache, pos)
     x = x + a
     m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
     return x + m, cache
 
 
 def embed_tokens(params, batch, cfg: ArchConfig) -> torch.Tensor:
-    # The gather's backward is index_put_ with accumulate, which PyTorch
-    # runs on CUDA by sorting the indices and summing each row's repeats
-    # in order, with no atomics: a step's gradients repeat bit for bit,
-    # which the resume check of chip_smoke.py relies on and checks.
-    x = params["embed"][batch["tokens"].long()].to(cfg.compute_dtype)
-    if cfg.name.startswith("gemma"):
-        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    """The model's input sequence (B, S, d_model) in the compute dtype: an
+    audio model's frames (``batch['frontend']`` (B, S, frontend_dim))
+    projected; a vision model's patches projected and placed before its
+    token embeddings; any other model's token embeddings (scaled by
+    sqrt(d_model) for gemma)."""
+    dt = cfg.compute_dtype
+    parts = []
+    if cfg.modality in ("audio", "vlm") and "frontend" in batch:
+        parts.append(batch["frontend"].to(dt)
+                     @ params["frontend_proj"].to(dt))
+    if cfg.modality != "audio":
+        # The gather's backward is index_put_ with accumulate, which
+        # PyTorch runs on CUDA by sorting the indices and summing each
+        # row's repeats in order, with no atomics: a step's gradients
+        # repeat bit for bit, which the resume check of chip_smoke.py
+        # relies on and checks.
+        x = params["embed"][batch["tokens"].long()].to(dt)
+        if cfg.name.startswith("gemma"):
+            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
+        parts.append(x)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def output_weight(params, cfg: ArchConfig) -> torch.Tensor:
@@ -198,7 +284,8 @@ def output_weight(params, cfg: ArchConfig) -> torch.Tensor:
 
 def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda"
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens (B, S), targets (B, S), mask (B, S).  Returns
+    """batch: tokens (B, S), targets (B, S), mask (B, S), and for an audio
+    or vision model ``frontend`` (an audio batch has no tokens).  Returns
     ``(loss, {"ce_loss", "aux_loss", "tokens"})``.
 
     ``impl`` selects the kernels: ``'cuda'`` the flash kernels and, for an
@@ -208,47 +295,85 @@ def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda"
     """
     x = embed_tokens(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    flags = global_flags(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = map_tree(lambda t: t[i], params["layers"])
-        args = (x, lp, cfg, cfg.layer_is_global(i), positions, impl)
+        args = (x, lp, cfg, bool(flags[i]), positions, impl)
         x, a = (checkpoint(_block_train, *args, use_reentrant=False) if remat
                 else _block_train(*args))
         aux = aux + a
     x = rms_norm(x, params["final_norm"])
     w_out = output_weight(params, cfg).to(cfg.compute_dtype)
-    loss, cnt = chunked_softmax_xent(x, w_out, batch["targets"],
-                                     batch.get("mask"), n_valid=cfg.vocab)
+    tgt = batch["targets"]
+    if x.shape[1] != tgt.shape[1]:  # a front-end prefix was prepended
+        x = x[:, x.shape[1] - tgt.shape[1]:]
+    loss, cnt = chunked_softmax_xent(x, w_out, tgt, batch.get("mask"),
+                                     n_valid=cfg.vocab)
     total = loss + cfg.router_aux_coef * aux / cfg.n_layers
     return total, {"ce_loss": loss, "aux_loss": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------
-# Dense inference: contiguous KV cache, prefill and decode
+# Dense inference: contiguous cache, prefill and decode
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device=None) -> Dict[str, torch.Tensor]:
-    """The layers' KV caches stacked ``(L, B, max_len, KVH, hd)`` (int8
-    codes and ``(L, B, max_len, KVH)`` scales for an int8 cache), zeros on
-    ``device`` (``None``: the GPU)."""
-    _check_family(cfg)
+               device=None) -> Dict[str, Any]:
+    """The layers' caches stacked on a leading layers axis, zeros on
+    ``device`` (``None``: the GPU): the KV cache ``(L, B, max_len, KVH,
+    hd)`` (int8 codes and ``(L, B, max_len, KVH)`` scales for an int8
+    cache); rwkv6's state ``{'s', 'x_tm', 'x_cm'}``; hymba's ``{'kv':
+    <the KV cache>, 'ssm': {'h', 'conv'}}``."""
+    dev = resolve_device(device)
     _, kv_heads = cfg.heads_for_tp(1)
-    one = attn_mod.init_kv_cache(cfg, kv_heads, batch, max_len,
-                                 resolve_device(device))
-    return {name: t.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * t.dim())
-            for name, t in one.items()}
+    if cfg.ssm == "rwkv6":
+        one = rwkv_mod.init_rwkv_state(cfg, batch, dev)
+    elif cfg.ssm == "hymba":
+        one = {"kv": attn_mod.init_kv_cache(cfg, kv_heads, batch, max_len,
+                                            dev),
+               "ssm": mamba_mod.init_mamba_state(cfg, batch, dev)}
+    else:
+        one = attn_mod.init_kv_cache(cfg, kv_heads, batch, max_len, dev)
+    return map_tree(
+        lambda t: t.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * t.dim()),
+        one)
+
+
+def cache_dims_tree(cfg: ArchConfig):
+    """The reference's logical dims of every cache leaf, layers first (for
+    sharding, which comes with the mesh: ROADMAP A9)."""
+    if cfg.ssm == "rwkv6":
+        dims = rwkv_mod.rwkv_state_dims(cfg)
+    elif cfg.ssm == "hymba":
+        dims = {"kv": attn_mod.cache_dims(cfg),
+                "ssm": mamba_mod.mamba_state_dims(cfg)}
+    else:
+        dims = attn_mod.cache_dims(cfg)
+    return map_tree(lambda d: ("layers",) + d, dims)
+
+
+def _write_back(dst, src) -> None:
+    """Store a layer's new cache ``src`` into its slice ``dst`` of the
+    stack: tensors the block already wrote in place are ``dst``'s own."""
+    if isinstance(dst, dict):
+        for name in dst:
+            _write_back(dst[name], src[name])
+    elif src is not dst:
+        dst.copy_(src)
 
 
 def _run_with_cache(params, x: torch.Tensor, cache, cfg: ArchConfig, block):
     """The layers in order, each on its slice of the stacked cache
     (``block(x, lp, is_global, layer_cache)``), written in place."""
+    flags = global_flags(cfg)
     for i in range(cfg.n_layers):
         lp = map_tree(lambda t: t[i], params["layers"])
-        x, _ = block(x, lp, cfg.layer_is_global(i),
-                     {name: c[i] for name, c in cache.items()})
+        lc = map_tree(lambda c: c[i], cache)
+        x, new = block(x, lp, bool(flags[i]), lc)
+        _write_back(lc, new)
     return x, cache
 
 
@@ -258,10 +383,11 @@ def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def prefill(params, batch, cache, cfg: ArchConfig, impl: str = "cuda"):
-    """Fill the cache from a prompt (``batch['tokens']`` (B, S)); returns
-    (last-token logits (B, 1, V), cache).  ``impl`` selects the MoE
-    dispatch and combine (:func:`train_loss`); the attention of the dense
-    path is plain tensor code on every device, as in the reference."""
+    """Fill the cache from a prompt (``batch['tokens']`` (B, S), and a
+    vision model's ``frontend``); returns (last-token logits (B, 1, V),
+    cache).  ``impl`` selects the MoE dispatch and combine
+    (:func:`train_loss`); the attention of the dense path is plain tensor
+    code on every device, as in the reference."""
     x = embed_tokens(params, batch, cfg)
     x, cache = _run_with_cache(
         params, x, cache, cfg,

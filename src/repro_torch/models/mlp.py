@@ -5,7 +5,9 @@ dispatch is an indirect write into expert-contiguous buffers and combine
 is an indirect read back (``kernels.ops.moe_dispatch`` /
 ``moe_combine``, the indirect scatter and gather kernels on the card).
 The expert FFN's three products stay ``torch.einsum`` (batched matrix
-products), as the reference leaves them to XLA outside any kernel.
+products), as the reference leaves them to XLA outside any kernel.  Every
+weight is read through :func:`_w`, which also takes the w8a16 form of
+``lm.quantize_mlp_weights`` (int8 codes and per-channel scales).
 
 The reference's expert-parallel lowering (``_ep_moe_fwd``, a shard_map
 over the mesh's experts axis) needs a device mesh, which the port does not
@@ -22,7 +24,11 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from .common import ACTIVATIONS, Param
 
-__all__ = ["mlp_defs", "mlp_fwd", "moe_capacity", "moe_defs", "moe_fwd"]
+__all__ = ["MLP_WEIGHT_NAMES", "mlp_defs", "mlp_fwd", "moe_capacity",
+           "moe_defs", "moe_fwd"]
+
+#: The weight leaves that ``lm.quantize_mlp_weights`` turns into int8.
+MLP_WEIGHT_NAMES = ("w_up", "w_gate", "w_down")
 
 
 def mlp_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, Param]:
@@ -33,12 +39,20 @@ def mlp_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, Param]:
     return defs
 
 
+def _w(leaf, dt: torch.dtype) -> torch.Tensor:
+    """A weight in ``dt``: a plain tensor, or w8a16 ``{'q': int8,
+    'scale': float32}`` dequantized as ``q * scale`` in ``dt``."""
+    if isinstance(leaf, dict):
+        return leaf["q"].to(dt) * leaf["scale"].to(dt)
+    return leaf.to(dt)
+
+
 def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     act = ACTIVATIONS[cfg.activation]
-    up = x @ p["w_up"].to(dt)
-    h = act(up) * (x @ p["w_gate"].to(dt)) if cfg.glu else act(up)
-    return h @ p["w_down"].to(dt)
+    up = x @ _w(p["w_up"], dt)
+    h = act(up) * (x @ _w(p["w_gate"], dt)) if cfg.glu else act(up)
+    return h @ _w(p["w_down"], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -71,12 +85,12 @@ def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
 def _expert_ffn(p, buf: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     act = ACTIVATIONS[cfg.activation]
-    up = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(dt))
+    up = torch.einsum("ecd,edf->ecf", buf, _w(p["w_up"], dt))
     if cfg.glu:
-        h = act(up) * torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(dt))
+        h = act(up) * torch.einsum("ecd,edf->ecf", buf, _w(p["w_gate"], dt))
     else:
         h = act(up)
-    return torch.einsum("ecf,efd->ecd", h, p["w_down"].to(dt))
+    return torch.einsum("ecf,efd->ecd", h, _w(p["w_down"], dt))
 
 
 def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,7 +3,16 @@
 
 The WKV recurrence  S_t = diag(w_t) S_{t-1} + k_t v_tᵀ,
                     y_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
-runs through :func:`~.common.decayed_cumsum`.  The dtypes follow the
+has two forms in :func:`wkv6`.  ``chunk=None`` steps the state token by
+token (:func:`~.common.decayed_cumsum`); the recurrent serving engine
+runs it.  ``chunk=C`` is the reference's training form, which the ``lm``
+paths run: chunks of C tokens (:data:`CHUNK` = 32, the reference's),
+each solved in log-depth (:func:`~.common.decayed_scan`) under
+``torch.utils.checkpoint`` when gradients are on, so the backward keeps
+only the (B, H, hd, hd) state between chunks.  Without it a 4k sequence
+keeps T/C x C·B·H·hd² bytes of scan residuals: the reference records
+62 GB a device at rwkv6-3b's 4k training shape before it chunked.  For
+T = 1 both forms run the same operations.  The dtypes follow the
 reference exactly: activations and the projections in
 ``cfg.compute_dtype``, the decay, the recurrence and the group-norm
 statistics in float32.  Sharding constraints are left out (no-ops here).
@@ -19,17 +28,22 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from .common import Param, cast_tree, decayed_cumsum, rms_norm
+from .common import (Param, cast_tree, decayed_cumsum, decayed_scan,
+                     rms_norm)
 
 __all__ = [
+    "CHUNK",
     "HEAD_DIM",
     "LORA_R",
     "channel_mix",
+    "init_rwkv_state",
     "rwkv_block",
     "rwkv_defs",
     "rwkv_heads",
+    "rwkv_state_dims",
     "rwkv_state_specs",
     "time_mix",
     "wkv6",
@@ -38,6 +52,8 @@ __all__ = [
 LORA_R = 32
 HEAD_DIM = 64
 MIX_NAMES = ("r", "w", "k", "v", "g")
+#: Tokens a chunk of the ``lm`` paths' scan (the reference's 32).
+CHUNK = 32
 
 
 def rwkv_heads(cfg: ArchConfig) -> int:
@@ -90,21 +106,47 @@ def _shift(x: torch.Tensor, x_last: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
+def _wkv_tokens(s: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                stepped: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tokens r, k, v, w (T, B, H, hd) float32 from state s (B, H, hd, hd)
+    → (the state after them, y (T, B, H, hd) float32); ``stepped`` steps
+    the state token by token, else it is solved in log-depth."""
+    kv = k[..., None] * v[..., None, :]                      # (T,B,H,hd,hd)
+    if stepped:
+        hs, s_new = decayed_cumsum(w[..., None].expand(kv.shape), kv, s)
+    else:
+        hs = decayed_scan(w[..., None], kv, s)
+        s_new = hs[-1]
+    s_prev = torch.cat([s[None], hs[:-1]], dim=0)
+    y = torch.einsum("tbhk,tbhkv->tbhv", r, s_prev)
+    bonus = torch.einsum("tbhk,hk,tbhk->tbh", r, u, k)
+    return s_new, y + bonus[..., None] * v
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-         u: torch.Tensor, s0: torch.Tensor
+         u: torch.Tensor, s0: torch.Tensor, chunk: Optional[int] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w (B, T, H, hd); u (H, hd); s0 (B, H, hd, hd) float32 →
-    (y in r's dtype, final state float32)."""
-    hd = r.shape[-1]
+    (y in r's dtype, final state float32).  ``chunk`` picks the form
+    (module doc): None steps token by token, an int solves chunks of that
+    many tokens (the last may be shorter)."""
     rt, kt, vt, wt = (x.float().transpose(0, 1) for x in (r, k, v, w))
-    a = wt[..., None].expand(wt.shape + (hd,))                # (T,B,H,hd,hd)
-    bb = kt[..., None] * vt[..., None, :]
-    hs, s_new = decayed_cumsum(a, bb, s0.float())
-    s_prev = torch.cat([s0.float()[None], hs[:-1]], dim=0)
-    y = torch.einsum("tbhk,tbhkv->tbhv", rt, s_prev)
-    bonus = torch.einsum("tbhk,hk,tbhk->tbh", rt, u.float(), kt)
-    y = y + bonus[..., None] * vt
-    return y.transpose(0, 1).to(r.dtype), s_new
+    u32, s = u.float(), s0.float()
+    if chunk is None:
+        s, y = _wkv_tokens(s, rt, kt, vt, wt, u32, stepped=True)
+    else:
+        ys = []
+        for i in range(0, rt.shape[0], chunk):
+            part = [x[i:i + chunk] for x in (rt, kt, vt, wt)]
+            if torch.is_grad_enabled():
+                s, yc = checkpoint(_wkv_tokens, s, *part, u32,
+                                   use_reentrant=False)
+            else:
+                s, yc = _wkv_tokens(s, *part, u32)
+            ys.append(yc)
+        y = torch.cat(ys) if len(ys) > 1 else ys[0]
+    return y.transpose(0, 1).to(r.dtype), s
 
 
 def _ddlerp(p, x, sx):
@@ -118,9 +160,11 @@ def _ddlerp(p, x, sx):
 
 
 def time_mix(p, x: torch.Tensor, cfg: ArchConfig,
-             state: Optional[Dict[str, torch.Tensor]] = None, pf=None):
+             state: Optional[Dict[str, torch.Tensor]] = None, pf=None,
+             chunk: Optional[int] = None):
     """x (B, T, D); state ``{'s': (B,H,hd,hd), 'x_tm': (B,D)}`` or None.
-    Returns (out (B, T, D), ``{'s', 'x_tm'}``)."""
+    Returns (out (B, T, D), ``{'s', 'x_tm'}``); ``chunk`` goes to
+    :func:`wkv6`."""
     dt = cfg.compute_dtype
     pf = pf if pf is not None else cast_tree(p, dt)
     b = x.shape[0]
@@ -140,7 +184,7 @@ def time_mix(p, x: torch.Tensor, cfg: ArchConfig,
 
     s0 = (torch.zeros((b, h, HEAD_DIM, HEAD_DIM), device=x.device)
           if state is None else state["s"])
-    y, s_new = wkv6(r, k, v, w.to(r.dtype), p["u"], s0)
+    y, s_new = wkv6(r, k, v, w.to(r.dtype), p["u"], s0, chunk)
 
     # Per-head group norm, statistics in float32.
     y32 = y.float()
@@ -169,14 +213,34 @@ def channel_mix(p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def rwkv_block(p, x: torch.Tensor, cfg: ArchConfig, norms,
-               state: Optional[Dict[str, torch.Tensor]] = None, pf=None):
+               state: Optional[Dict[str, torch.Tensor]] = None, pf=None,
+               chunk: Optional[int] = None):
     """One RWKV layer: x + TM(norm(x)); x + CM(norm(x)).  Returns
-    (x, state).  ``p`` holds ``tm`` and ``cm``; ``norms`` ``ln1``/``ln2``."""
+    (x, state).  ``p`` holds ``tm`` and ``cm``; ``norms`` ``ln1``/``ln2``;
+    ``chunk`` goes to :func:`wkv6`."""
     pf = pf if pf is not None else cast_tree(p, cfg.compute_dtype)
     tm_out, st_tm = time_mix(p["tm"], rms_norm(x, norms["ln1"]), cfg, state,
-                             pf=pf["tm"])
+                             pf=pf["tm"], chunk=chunk)
     x = x + tm_out
     cm_out, st_cm = channel_mix(p["cm"], rms_norm(x, norms["ln2"]), cfg,
                                 state, pf=pf["cm"])
     x = x + cm_out
     return x, {**st_tm, **st_cm}
+
+
+def init_rwkv_state(cfg: ArchConfig, batch: int,
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """A zero state: ``s`` (B, H, hd, hd) float32, ``x_tm`` and ``x_cm``
+    (B, D) in the compute dtype."""
+    return {name: torch.zeros((batch,) + shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in rwkv_state_specs(cfg).items()}
+
+
+def rwkv_state_dims(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The reference's logical dims of each state leaf (for sharding,
+    ROADMAP A9)."""
+    return {
+        "s": ("cache_batch", "heads", None, None),
+        "x_tm": ("cache_batch", None),
+        "x_cm": ("cache_batch", None),
+    }

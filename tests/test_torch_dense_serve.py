@@ -205,8 +205,12 @@ def test_sampling_is_seeded_and_bounded():
 
 
 def test_unported_families_raise_for_the_dense_path():
-    with pytest.raises(NotImplementedError, match="A7c"):
-        lm.init_cache(smoke_config("rwkv6-3b"), 1, 8, device=CPU)
+    """Every causal family has a dense cache now (A7c is done); what still
+    refuses the dense path is an encoder, which has no decode step."""
+    cache = lm.init_cache(smoke_config("rwkv6-3b"), 1, 8, device=CPU)
+    assert sorted(cache) == ["s", "x_cm", "x_tm"]
+    with pytest.raises(SystemExit, match="encoder-only"):
+        serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", CPU])
 
 
 def test_serve_launcher_runs_olmoe_on_the_cpu():

@@ -241,6 +241,27 @@ def test_cpu_tensors_launch_nothing():
     assert set(ops.launch_counts().values()) == {0}
 
 
+def test_head_dim_80_reaches_the_kernel_entries(monkeypatch):
+    """hubert-xlarge's D = 80 goes to the C entries as D = 80 with the true
+    softmax scale, and the bf16 dk/dv pass gets partials for 128-column
+    tiles (two of them a key row, in whole 128-key blocks)."""
+    stub = _Stubbed(monkeypatch)
+    q, k, v = (t.detach().to(torch.bfloat16).requires_grad_()
+               for t in _bshd_views(5, s=130, d=80, grad=False))
+    ops.flash_attention(q, k, v).float().sum().backward()
+    names = [c[0] for c in stub.calls]
+    assert names == ["repro_flash_attention_lse",
+                     "repro_flash_attention_bwd_dkv",
+                     "repro_flash_attention_bwd_dq"]
+    for _, args in stub.calls:
+        tail = args[-12:]  # B, H, KVH, Sq, Skv, D, causal, window x 2,
+        assert tail[:6] == (2, 4, 2, 130, 130, 80)  # scale, bf16, stream
+        assert tail[9] == pytest.approx(1 / np.sqrt(80)) and tail[10] == 1
+    partial = stub.calls[1][1][9]
+    assert partial.value is not None
+    assert ops._tile_width(80) == 128 and ops._tile_width(64) == 64
+
+
 @pytest.mark.parametrize("case", ["head_dim", "dtypes", "groups"])
 def test_kernel_path_raises_on_what_it_does_not_take(monkeypatch, case):
     _Stubbed(monkeypatch)
@@ -282,6 +303,11 @@ CARD_CASES = [
     (1, 4, 1, 1024, 1024, 128, True, 256),
     (1, 4, 2, 200, 64, 128, True, 32),
     (2, 8, 2, 512, 512, 64, True, None),
+    # D = 80 (hubert-xlarge), which the bf16 route runs in D = 128 tiles:
+    # non-causal ragged, causal, and a window.
+    (2, 4, 4, 300, 300, 80, False, None),
+    (1, 4, 2, 256, 256, 80, True, None),
+    (1, 4, 1, 300, 300, 80, True, 48),
 ]
 
 

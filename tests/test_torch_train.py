@@ -214,16 +214,19 @@ def test_params_from_numpy_rejects_another_tree(jx):
 
 
 def test_unported_families_and_steps_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        lm.model_defs(get_config("rwkv6-3b"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        lm.model_defs(dataclasses.replace(CFG, modality="audio"))
+    """What still raises names ROADMAP A9: the expert-parallel MoE and
+    the compressed data-parallel step need a device mesh.  Every family's
+    tree builds (A7c is done): MoE, rwkv6, hymba and the front ends."""
     with pytest.raises(NotImplementedError, match="A9"):
         mlp._ep_moe_fwd({}, torch.zeros(1), CFG)
     with pytest.raises(NotImplementedError, match="A9"):
         make_compressed_train_step(CFG, None, None)
-    # MoE layers are ported: their tree builds.
     assert "moe" in lm.model_defs(smoke_config("olmoe-1b-7b"))["layers"]
+    assert "tm" in lm.model_defs(get_config("rwkv6-3b"))["layers"]
+    assert "hymba" in lm.model_defs(smoke_config("hymba-1.5b"))["layers"]
+    audio = lm.model_defs(dataclasses.replace(CFG, modality="audio",
+                                              frontend_dim=16))
+    assert "frontend_proj" in audio and "embed" not in audio
 
 
 # ---------------------------------------------------------------------------
