@@ -11,8 +11,10 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    ``src/repro_torch/kernels/csrc`` built with ``nvcc`` in parallel.
 2. Kernels: each of the eight serving kernels against its plain PyTorch
    version on the card.  The paged ones at the yi-6b serving shapes (H=32, KVH=4,
-   D=128, page 16, batch 8; verify with K=4 queries per sequence), fp32
-   and int8 pools; the strided converters at the rwkv6-3b and Mamba
+   D=128, page 16, batch 8; verify with K=4 queries per sequence), fp32,
+   int8 and bf16 pools (attention and the paged K/V write; the converters
+   are not on the bf16 path), the bf16 attention also bitwise equal to the
+   same kernel on the pools widened to fp32; the strided converters at the rwkv6-3b and Mamba
    (yi-6b width) state-pool shapes, fp32 and bf16 rows, plus odd row
    widths.  The indirect gather also on each copy unit of its plan
    (16 bytes: fp32 32 KB pages, int8 8 KB pages and their 256 B scale
@@ -76,19 +78,23 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
    vocab 64000; random weights from a seeded torch.Generator) through the
    port's ``Scheduler``: 8 requests, prompts of 17-300 tokens, 32 new
    tokens each, batch 8, page 16, max_len 512, chunk 32.  First with fp32
-   pools, then int8 pools in a pool tight enough to force evictions.  The
+   pools, then int8, bf16 and ``kv_dtype=None`` (the config's bf16, as the
+   reference serves yi-6b) in a pool tight enough to force evictions.  The
    token streams must equal ``static_batch_generate`` on the plain path
    (``impl='ref'``), and every kernel of the path must have launched:
-   the paged K/V write, never the indirect converters.
+   the paged K/V write, never the indirect converters.  The None run must
+   serve from bf16 pools the bf16 run's stream; how many bf16 tokens
+   differ from the fp32 stream is logged (a different result, not a
+   fault).
    On a flip, the top two logits at that token on both paths (a chunked
    prefill of the prompt and the plain tokens before it) are logged.
-   Then an isolated prefill and decode run gives tokens/s, launches per
-   step (one paged K/V write a layer) and the profiler's kernel count of
-   one decode step and one prefill chunk.
+   Then an isolated prefill and decode run, on fp32 and on bf16 pools,
+   gives tokens/s, launches per step (one paged K/V write a layer) and the
+   profiler's kernel count of one decode step and one prefill chunk.
 5. Speculative serving: the same model, prompts and pools with
-   ``spec_k = 4`` and an ``NGramDrafter``: the tokens must equal plain
-   greedy (phase 4's ``static_batch_generate``), verify must have
-   launched, and the int8 run must evict.
+   ``spec_k = 4`` and an ``NGramDrafter``, fp32, int8 and bf16: the tokens
+   must equal plain greedy (phase 4's ``static_batch_generate``), verify
+   must have launched, and the int8 and bf16 runs must evict.
 6. Recurrent serving: rwkv6-3b at full width (32 layers, d_model 2560,
    40 WKV heads, d_ff 8960, vocab 65536) and the Mamba block at yi-6b
    width, bf16 activations, random weights from a seeded generator,
@@ -179,12 +185,14 @@ of the indirect converters report the MoE shape and add ``rows``,
 their oracles, forward and backward) and ``device_ms`` /
 ``library_device_ms``.  The rows
 of the paged attention kernels add ``kernel_route`` (the plan's route) and
-``device_ms``; those of the gather, the paged K/V write and the two SpMVs
+``device_ms``, and under ``shapes`` the int8 and bf16 pools' times,
+bounds (at 1 and 2 bytes an element), plain times and, for bf16, the
+launches of the bf16 serving runs; those of the gather, the paged K/V write and the two SpMVs
 add ``kernel_route``, ``device_ms`` / ``library_device_ms`` (profiler),
 for the gather ``slab_bytes``, ``launch_floor_ms`` /
 ``launch_floor_device_ms``, the routes checked and under ``shapes`` the
 same times for the int8 codes and scale rows, for the paged K/V write
-under ``shapes`` the append and the int8 pools' times, for the ELL SpMV
+under ``shapes`` the append and the int8 and bf16 pools' times, for the ELL SpMV
 ``x_sector_bytes`` (live entries times 32 bytes), for the panel SpMV ``ms_cp_async`` /
 ``device_ms_cp_async``.  Without a
 GPU, or outside a checkout of the repository, it exits nonzero and prints
@@ -206,6 +214,11 @@ import torch
 
 SEED = 0
 SPEC_K = 4
+# The paged serving runs' kv_dtype: None is the config's compute dtype
+# (bf16 for yi-6b), and must serve what "bf16" serves.
+SERVE_DTYPES = ("fp32", "int8", "bf16", None)
+SPEC_DTYPES = ("fp32", "int8", "bf16")
+BF16_DTYPES = ("bf16", None)
 N_TIMED = 25
 SLEEP_CYCLES = 4_000_000   # ~2 ms of GPU clock: longer than a kernel call's
 STEP_SLEEP_CYCLES = 100_000_000  # ~50 ms: longer than a decode step's
@@ -310,6 +323,14 @@ WORKLOAD_KERNELS = ("tiled_transpose", "spmv_ell", "spmv_ell_panel_kernel")
 #: and one paged K/V write a layer.
 ATTENTION_KERNELS = ("paged_decode_attention", "paged_prefill_attention",
                      "paged_verify")
+#: The pool elements the kernels phase checks the serving kernels on; the
+#: first is the one the JSON line reports, the others go under ``shapes``.
+POOL_TAGS = ("fp32", "int8", "bf16")
+#: The keys of the paged attention kernels' int8 and bf16 cases under
+#: ``shapes`` (``bitwise_widened``: bf16 equal to the kernel on the pools
+#: widened to fp32).
+ATTN_SHAPE_KEYS = ("kernel_route", "ms", "device_ms", "plain_ms", "bound_ms",
+                   "bound_by", "max_abs_err", "bitwise_widened")
 
 # The training phase: yi-6b at full width cut to 4 layers, sequences of
 # train_4k's length, global batch 4 in 2 microbatches, AdamW; checkpoints
@@ -523,21 +544,23 @@ def profile_ms(fn, n: int = N_TIMED, tries: int = 5):
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(rng, dev, quantized, lens):
-    """A yi-6b layer's pools, page table and lengths for 8 sequences."""
+def kernel_inputs(rng, dev, tag, lens):
+    """A yi-6b layer's pools (``tag``: fp32, int8 codes with scales, or
+    bf16), page table and lengths for 8 sequences."""
     kvh, d, h = 4, 128, 32
     n_pages = MAX_LEN // PAGE
     pool = BATCH * n_pages
     shape = (pool, PAGE, kvh, d)
-    if quantized:
+    ks = vs = None
+    if tag == "int8":
         kp = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
         vp = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev)
         ks = torch.rand(shape[:3], device=dev) * 0.02 + 0.001
         vs = torch.rand(shape[:3], device=dev) * 0.02 + 0.001
     else:
-        kp = torch.randn(shape, device=dev)
-        vp = torch.randn(shape, device=dev)
-        ks = vs = None
+        dt = torch.bfloat16 if tag == "bf16" else torch.float32
+        kp = torch.randn(shape, device=dev).to(dt)
+        vp = torch.randn(shape, device=dev).to(dt)
     table = torch.tensor(
         rng.permutation(pool)[: BATCH * n_pages].reshape(BATCH, n_pages),
         dtype=torch.int32, device=dev)
@@ -583,17 +606,30 @@ def check_split(name, fn, args, kwargs, got, widths):
     return plan.route
 
 
+def check_widened(name, fn, args, got, kp, vp):
+    """bf16 pools: ``fn`` on ``args`` gave ``got``; the same kernel on the
+    pools widened to fp32 (exact) must give the same bits."""
+    wide = fn(args[0], kp.float(), vp.float(), *args[3:])
+    torch.cuda.synchronize()
+    require(torch.equal(wide, got),
+            f"{name}: not bitwise equal to the kernel on the widened fp32 "
+            f"pools (max abs diff {(wide - got).abs().max().item():.3e})")
+    log(f"{name}: bitwise equal to the kernel on the widened fp32 pools")
+    return True
+
+
 def check_kernels(ops, dev, lens, bw, flops):
-    """Correctness, poison and timing of the four kernels; returns the
-    per-kernel records (without launches) keyed by wrapper name."""
+    """Correctness, poison and timing of the serving kernels on fp32, int8
+    and bf16 pools; returns the per-kernel records (without launches)
+    keyed by (wrapper name, tag)."""
     rng = np.random.default_rng(SEED)
     records = {}
     sc = lambda ks, vs: {} if ks is None else dict(k_scale=ks, v_scale=vs)
-    for quantized in (False, True):
-        tag = "int8" if quantized else "fp32"
+    for tag in POOL_TAGS:
+        quantized = tag == "int8"
         h, kvh, d, kp, vp, ks, vs, table, lengths = kernel_inputs(
-            rng, dev, quantized, lens)
-        elem = 1 if quantized else 4
+            rng, dev, tag, lens)
+        elem = kp.element_size()
         pool = kp.shape[0]
 
         # -- decode: one query per sequence at the serving lengths.
@@ -615,6 +651,9 @@ def check_kernels(ops, dev, lens, bw, flops):
         route = check_split(f"paged_decode {tag}", ops.paged_decode_attention,
                             args, sc(ks, vs), got,
                             [-(-n // PAGE) for n in lens])
+        widened = (check_widened(f"paged_decode {tag}",
+                                 ops.paged_decode_attention, args, got, kp,
+                                 vp) if tag == "bf16" else None)
         live = int(sum(lens))
         nbytes = (live * kvh * (2 * d * elem + (8 if quantized else 0))
                   + 2 * q.numel() * 4
@@ -623,7 +662,7 @@ def check_kernels(ops, dev, lens, bw, flops):
         records[("paged_decode_attention", tag)] = dict(
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes, ops=nops, kernel_route=route,
-            device_ms=profile_ms(run))
+            device_ms=profile_ms(run), bitwise_widened=widened)
 
         # -- prefill: 8 rows of a 32-token chunk, ragged, one padding row.
         starts = [0, 32, 64, 96, 128, 160, 256, 288]
@@ -655,6 +694,9 @@ def check_kernels(ops, dev, lens, bw, flops):
         route = check_split(f"paged_prefill {tag}",
                             ops.paged_prefill_attention, args, sc(ks, vs),
                             got, [-(-lv // PAGE) for lv in live_r])
+        widened = (check_widened(f"paged_prefill {tag}",
+                                 ops.paged_prefill_attention, args, got, kp,
+                                 vp) if tag == "bf16" else None)
         seen = sum(min(s + c + 1, lv) for s, lv in zip(starts, live_r)
                    if lv for c in range(CHUNK))
         nbytes = (sum(live_r) * kvh * (2 * d * elem + (8 if quantized else 0))
@@ -664,7 +706,7 @@ def check_kernels(ops, dev, lens, bw, flops):
         records[("paged_prefill_attention", tag)] = dict(
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes, ops=nops, kernel_route=route,
-            device_ms=profile_ms(run))
+            device_ms=profile_ms(run), bitwise_widened=widened)
 
         # -- verify: K queries per sequence at the serving lengths, one row
         #    clamped to 2 scored tokens and one padding row.
@@ -693,6 +735,9 @@ def check_kernels(ops, dev, lens, bw, flops):
                 f"paged_verify {tag}: NaN from an unmapped page")
         route = check_split(f"paged_verify {tag}", ops.paged_verify, args,
                             sc(ks, vs), got, [-(-lv // PAGE) for lv in vlive])
+        widened = (check_widened(f"paged_verify {tag}", ops.paged_verify,
+                                 args, got, kp, vp) if tag == "bf16"
+                   else None)
         seen = sum(n + i + 1 for n, c in zip(lens, vcounts)
                    for i in range(c))
         nbytes = (sum(vlive) * kvh * (2 * d * elem + (8 if quantized else 0))
@@ -701,7 +746,12 @@ def check_kernels(ops, dev, lens, bw, flops):
         records[("paged_verify", tag)] = dict(
             max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
             library_ms=None, bytes=nbytes, ops=4 * h * d * seen,
-            kernel_route=route, device_ms=profile_ms(run))
+            kernel_route=route, device_ms=profile_ms(run),
+            bitwise_widened=widened)
+        if tag == "bf16":  # the converters are not on the bf16 path
+            records.update(check_paged_write(ops, dev, tag, kp, vp, ks, vs,
+                                             table, lengths))
+            continue
 
         # -- gather: the prefill window read, 3 pages for each of 8 rows
         #    (int8: the codes, then the scale rows).
@@ -760,8 +810,14 @@ def check_kernels(ops, dev, lens, bw, flops):
         for stag in ("fp32", "int8")}
     records[("paged_kv_write", REPORTED["paged_kv_write"])]["shapes"] = {
         stag: {key: records[("paged_kv_write", stag)].get(key)
-               for key in SHAPE_KEYS}
-        for stag in ("fp32 append", "int8 append", "int8 chunk")}
+               for key in SHAPE_KEYS + ("plain_ms", "bound_by")}
+        for stag in ("fp32 append", "int8 append", "int8 chunk",
+                     "bf16 append", "bf16 chunk")}
+    for kname in ATTENTION_KERNELS:
+        records[(kname, REPORTED[kname])]["shapes"] = {
+            stag: {key: records[(kname, stag)].get(key)
+                   for key in ATTN_SHAPE_KEYS}
+            for stag in POOL_TAGS[1:]}
     return records
 
 
@@ -771,7 +827,8 @@ def check_paged_write(ops, dev, tag, kp, vp, ks, vs, table, lengths):
     the decode append (8 rows, the last one inactive; a chunk of one token,
     as the decode step launches it) and the prefill chunk write (8 rows of
     a 32-token chunk, ragged, one padding row), K and V (codes and scales
-    for int8).  Timed by events and the profiler (no
+    for int8, rows rounded to nearest even for bf16).  Timed by events and
+    the profiler (no
     single PyTorch call computes the write).  Returns the records keyed
     (name, "<tag> append" / "<tag> chunk")."""
     records = {}
@@ -1498,6 +1555,22 @@ def serve(serve_mod, cfg, dev, params, kv_dtype, prompts, pool_pages=None):
     return out, static, sched, launches, seconds
 
 
+def stream_diff(a, b):
+    """How many tokens of streams ``a`` differ from ``b`` (same requests,
+    same lengths), and in how many requests; the first such token."""
+    n = first = 0
+    reqs = set()
+    for rid in sorted(a):
+        for i, (x, y) in enumerate(zip(a[rid], b[rid])):
+            if x != y:
+                n += 1
+                reqs.add(rid)
+                first = first or (rid, i)
+    total = sum(len(t) for t in a.values())
+    return dict(tokens_differing=n, tokens=total, requests=len(reqs),
+                first=first or None)
+
+
 def first_divergence(out, static):
     for rid in sorted(static):
         a, b = out.get(rid, []), static[rid]
@@ -1545,15 +1618,17 @@ def flip_gap(serve_mod, cfg, dev, params, kv_dtype, prompts, out, static):
     return res
 
 
-def throughput(serve_mod, cfg, dev, params, prompts):
+def throughput(serve_mod, cfg, dev, params, prompts, kv_dtype="fp32"):
     """Isolated prefill of all prompts (rows of 8) and 32 decode steps at
-    batch 8, fp32 pools; tokens/s and kernel launches per step."""
+    batch 8 on ``kv_dtype`` pools; tokens/s and kernel launches per
+    step."""
     from repro_torch.kernels import ops
     from repro_torch.serve.scheduler import build_prefill_rows
 
-    model = serve_mod.PagedLM(cfg, kv_dtype="fp32", device=dev, params=params)
+    model = serve_mod.PagedLM(cfg, kv_dtype=kv_dtype, device=dev,
+                              params=params)
     cache = serve_mod.PagedKVCache.create(
-        cfg, batch=BATCH, max_len=MAX_LEN, page=PAGE, kv_dtype="fp32",
+        cfg, batch=BATCH, max_len=MAX_LEN, page=PAGE, kv_dtype=kv_dtype,
         device=dev)
     for i, p in enumerate(prompts):
         cache = cache.allocate(i, cache.pages_for(len(p) + MAX_NEW))
@@ -1649,6 +1724,124 @@ def serve_spec(serve_mod, cfg, dev, params, kv_dtype, prompts,
     out = sched.run()
     torch.cuda.synchronize()
     return out, sched, ops.launch_counts(), time.perf_counter() - t0
+
+
+def serve_paged_dtypes(serve_mod, cfg, dev, params, prompts):
+    """Phase 4's scheduler runs, one for each of :data:`SERVE_DTYPES`:
+    fp32 in a roomy pool; int8, bf16 and the config's own dtype (None: bf16
+    for yi-6b, as the reference serves it) in the tight pool.  Each stream
+    must equal the plain path's, every kernel of the path launch (one
+    paged K/V write a layer a step) and no converter; the None run must
+    serve from bf16 pools the bf16 run's stream.  Returns the static
+    (plain) streams and the launch counts, by kv_dtype."""
+    statics, outs, launch_counts = {}, {}, {}
+    paged_kernels = ("paged_kv_write", "paged_decode_attention",
+                     "paged_prefill_attention")
+    converters = ("indirect_gather", "indirect_scatter")
+    for kv_dtype in SERVE_DTYPES:
+        pool = tight_pool(prompts) if kv_dtype != "fp32" else None
+        out, static, sched, counts, secs = serve(
+            serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
+        statics[kv_dtype], outs[kv_dtype] = static, out
+        launch_counts[kv_dtype] = counts
+        div = first_divergence(out, static)
+        st = sched.stats
+        pools = sched.cache
+        log(f"serve {kv_dtype}: pool {pools.total_pages} pages of "
+            f"{pools.k_pages.dtype}, {pools.pool_bytes} bytes "
+            f"({pools.pool_bytes / (8 * pools.k_pages.numel()):.4f} of fp32 "
+            f"pools of that size), "
+            f"{st.tokens} tokens in {secs:.3f} s "
+            f"({st.tokens / secs:.1f} tokens/s), {st.n_evictions} evictions, "
+            f"{st.prefill_steps} prefill steps, {st.decode_steps} decode "
+            f"steps; launches {counts}; streams equal to plain path: "
+            f"{div is None}")
+        if div is not None:
+            gap = flip_gap(serve_mod, cfg, dev, params, kv_dtype, prompts,
+                           out, static)
+            log(f"serve {kv_dtype}: top-2 logit gap at the flip: "
+                + json.dumps(gap))
+        require(div is None, f"serve {kv_dtype}: first divergence at {div}")
+        require(sorted(out) == list(range(N_REQUESTS))
+                and all(len(t) == MAX_NEW for t in out.values()),
+                f"serve {kv_dtype}: not every request finished")
+        require(all(counts[k] > 0 for k in paged_kernels),
+                f"serve {kv_dtype}: a kernel never launched: {counts}")
+        require(all(counts[k] == 0 for k in converters),
+                f"serve {kv_dtype}: a converter launched: {counts}")
+        require(counts["paged_kv_write"] == sum(
+            counts[k] for k in ATTENTION_KERNELS),
+            f"serve {kv_dtype}: not one K/V write a layer a step: {counts}")
+        if pool is not None:
+            require(st.n_evictions >= 1,
+                    f"serve {kv_dtype}: the tight pool forced no eviction")
+        if kv_dtype in BF16_DTYPES:
+            require(pools.k_pages.dtype == torch.bfloat16
+                    and pools.k_scale is None,
+                    f"serve {kv_dtype}: pools of {pools.k_pages.dtype}, "
+                    f"not bf16 without scales")
+    require(outs[None] == outs["bf16"],
+            "serve: kv_dtype=None on the bf16 config does not give the "
+            "bf16 pools' stream")
+    log(f"serve bf16 vs fp32 (a different result, not a fault): "
+        f"{stream_diff(outs['bf16'], outs['fp32'])}")
+    return statics, launch_counts
+
+
+def serve_spec_dtypes(serve_mod, cfg, dev, params, prompts, statics, smi):
+    """Phase 5's speculative runs, one for each of :data:`SPEC_DTYPES`
+    (the tight pool for all but fp32): each stream must equal plain greedy
+    (phase 4's static streams), verify launch, no converter.  Returns the
+    launch counts by kv_dtype."""
+    launch_counts = {}
+    converters = ("indirect_gather", "indirect_scatter")
+    for kv_dtype in SPEC_DTYPES:
+        pool = tight_pool(prompts) if kv_dtype != "fp32" else None
+        out, sched, counts, secs = serve_spec(
+            serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
+        launch_counts[kv_dtype] = counts
+        div = first_divergence(out, statics[kv_dtype])
+        st = sched.stats
+        log(f"serve spec_k={SPEC_K} {kv_dtype} ({smi}): pool "
+            f"{sched.cache.total_pages} pages, {st.tokens} tokens in "
+            f"{secs:.3f} s ({st.tokens / secs:.1f} tokens/s), "
+            f"{st.spec_steps} verify steps, acceptance rate "
+            f"{st.acceptance_rate:.4f} ({st.n_accepted}/{st.n_drafted} "
+            f"drafts), {st.n_evictions} evictions; launches {counts}; "
+            f"streams equal to plain greedy: {div is None}")
+        if div is not None:
+            log(f"serve spec {kv_dtype}: top-2 logit gap at the flip: "
+                + json.dumps(flip_gap(serve_mod, cfg, dev, params, kv_dtype,
+                                      prompts, out, statics[kv_dtype])))
+        require(div is None,
+                f"serve spec {kv_dtype}: first divergence at {div}")
+        require(sorted(out) == list(range(N_REQUESTS))
+                and all(len(t) == MAX_NEW for t in out.values()),
+                f"serve spec {kv_dtype}: not every request finished")
+        require(st.spec_steps > 0 and counts["paged_verify"] > 0
+                and counts["paged_kv_write"] > 0,
+                f"serve spec {kv_dtype}: verify never launched: {counts}")
+        require(all(counts[k] == 0 for k in converters),
+                f"serve spec {kv_dtype}: a converter launched: {counts}")
+        require(counts["paged_kv_write"] == sum(
+            counts[k] for k in ATTENTION_KERNELS),
+            f"serve spec {kv_dtype}: not one K/V write a layer a step: "
+            f"{counts}")
+        if pool is not None:
+            require(st.n_evictions >= 1,
+                    f"serve spec {kv_dtype}: the tight pool forced no "
+                    f"eviction")
+    return launch_counts
+
+
+def add_launches(launches, bf16_launches, counts):
+    """Add each run's launch counts (``{kv_dtype: counts}``) to the
+    totals, and the bf16 pools' runs also to ``bf16_launches``."""
+    for kv_dtype, run in counts.items():
+        for k, v in run.items():
+            launches[k] += v
+            if kv_dtype in BF16_DTYPES:
+                bf16_launches[k] += v
 
 
 # ---------------------------------------------------------------------------
@@ -2747,6 +2940,7 @@ def main() -> int:
     for key in [k for k in records if k[0] in WORKLOAD_KERNELS]:
         log(f"kernel {key[0]} [{key[1]}]: " + json.dumps(records[key]))
     launches = {k: 0 for k in ops.launch_counts()}
+    bf16_launches = dict(launches)  # the bf16 pools' serving runs alone
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     recs, res, rows = run_workloads(W, cli, dev, graph)
@@ -2779,93 +2973,26 @@ def main() -> int:
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}; "
         f"{weight_gb:.2f} GB of fp32 weights; prompts "
         f"{[len(p) for p in prompts]}")
-    statics = {}
-    paged_kernels = ("paged_kv_write", "paged_decode_attention",
-                     "paged_prefill_attention")
-    converters = ("indirect_gather", "indirect_scatter")
-    for kv_dtype in ("fp32", "int8"):
-        pool = tight_pool(prompts) if kv_dtype == "int8" else None
-        out, static, sched, counts, secs = serve(
-            serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
-        statics[kv_dtype] = static
-        for k, v in counts.items():
-            launches[k] += v
-        div = first_divergence(out, static)
-        st = sched.stats
-        log(f"serve {kv_dtype}: pool {sched.cache.total_pages} pages, "
-            f"{st.tokens} tokens in {secs:.3f} s "
-            f"({st.tokens / secs:.1f} tokens/s), {st.n_evictions} evictions, "
-            f"{st.prefill_steps} prefill steps, {st.decode_steps} decode "
-            f"steps; launches {counts}; streams equal to plain path: "
-            f"{div is None}")
-        if div is not None:
-            gap = flip_gap(serve_mod, cfg, dev, params, kv_dtype, prompts,
-                           out, static)
-            log(f"serve {kv_dtype}: top-2 logit gap at the flip: "
-                + json.dumps(gap))
-        require(div is None, f"serve {kv_dtype}: first divergence at {div}")
-        require(sorted(out) == list(range(N_REQUESTS))
-                and all(len(t) == MAX_NEW for t in out.values()),
-                f"serve {kv_dtype}: not every request finished")
-        require(all(counts[k] > 0 for k in paged_kernels),
-                f"serve {kv_dtype}: a kernel never launched: {counts}")
-        require(all(counts[k] == 0 for k in converters),
-                f"serve {kv_dtype}: a converter launched: {counts}")
-        require(counts["paged_kv_write"] == sum(
-            counts[k] for k in ATTENTION_KERNELS),
-            f"serve {kv_dtype}: not one K/V write a layer a step: {counts}")
-        if kv_dtype == "int8":
-            require(st.n_evictions >= 1,
-                    "serve int8: the tight pool forced no eviction")
-    tp = throughput(serve_mod, cfg, dev, params, prompts)
-    log(f"throughput fp32 ({smi}): " + json.dumps(tp))
-    for step in ("decode", "prefill"):
-        per = tp[f"launches_per_{step}_step"]
-        require(per["paged_kv_write"] == cfg.n_layers
-                and all(per[k] == 0 for k in converters),
-                f"throughput: not one paged K/V write a layer a {step} "
-                f"step: {per}")
+    statics, counts = serve_paged_dtypes(serve_mod, cfg, dev, params,
+                                         prompts)
+    add_launches(launches, bf16_launches, counts)
+    for kv_dtype in ("fp32", "bf16"):
+        tp = throughput(serve_mod, cfg, dev, params, prompts, kv_dtype)
+        log(f"throughput {kv_dtype} ({smi}): " + json.dumps(tp))
+        for step in ("decode", "prefill"):
+            per = tp[f"launches_per_{step}_step"]
+            require(per["paged_kv_write"] == cfg.n_layers
+                    and all(per[k] == 0 for k in MOE_CONVERTERS),
+                    f"throughput {kv_dtype}: not one paged K/V write a "
+                    f"layer a {step} step: {per}")
     phase_s["paged serving"] = time.perf_counter() - t0
 
     # -- phase 5: speculative serving, full-width yi-6b -----------------------
     t0 = time.perf_counter()
-    for kv_dtype in ("fp32", "int8"):
-        pool = tight_pool(prompts) if kv_dtype == "int8" else None
-        out, sched, counts, secs = serve_spec(
-            serve_mod, cfg, dev, params, kv_dtype, prompts, pool)
-        for k, v in counts.items():
-            launches[k] += v
-        div = first_divergence(out, statics[kv_dtype])
-        st = sched.stats
-        log(f"serve spec_k={SPEC_K} {kv_dtype} ({smi}): pool "
-            f"{sched.cache.total_pages} pages, {st.tokens} tokens in "
-            f"{secs:.3f} s ({st.tokens / secs:.1f} tokens/s), "
-            f"{st.spec_steps} verify steps, acceptance rate "
-            f"{st.acceptance_rate:.4f} ({st.n_accepted}/{st.n_drafted} "
-            f"drafts), {st.n_evictions} evictions; launches {counts}; "
-            f"streams equal to plain greedy: {div is None}")
-        if div is not None:
-            log(f"serve spec {kv_dtype}: top-2 logit gap at the flip: "
-                + json.dumps(flip_gap(serve_mod, cfg, dev, params, kv_dtype,
-                                      prompts, out, statics[kv_dtype])))
-        require(div is None,
-                f"serve spec {kv_dtype}: first divergence at {div}")
-        require(sorted(out) == list(range(N_REQUESTS))
-                and all(len(t) == MAX_NEW for t in out.values()),
-                f"serve spec {kv_dtype}: not every request finished")
-        require(st.spec_steps > 0 and counts["paged_verify"] > 0
-                and counts["paged_kv_write"] > 0,
-                f"serve spec {kv_dtype}: verify never launched: {counts}")
-        require(all(counts[k] == 0 for k in converters),
-                f"serve spec {kv_dtype}: a converter launched: {counts}")
-        require(counts["paged_kv_write"] == sum(
-            counts[k] for k in ATTENTION_KERNELS),
-            f"serve spec {kv_dtype}: not one K/V write a layer a step: "
-            f"{counts}")
-        if kv_dtype == "int8":
-            require(st.n_evictions >= 1,
-                    "serve spec int8: the tight pool forced no eviction")
-    del params, sched
+    counts = serve_spec_dtypes(serve_mod, cfg, dev, params, prompts,
+                               statics, smi)
+    add_launches(launches, bf16_launches, counts)
+    del params
     torch.cuda.empty_cache()
     phase_s["speculative serving"] = time.perf_counter() - t0
 
@@ -2981,6 +3108,13 @@ def main() -> int:
         f"events (no device time in any profiler session): "
         f"{PROFILER_MISSES}")
 
+    for kname in ATTENTION_KERNELS:
+        records[(kname, REPORTED[kname])]["shapes"]["bf16"]["launches"] = \
+            bf16_launches[kname]
+    for stag in ("bf16 append", "bf16 chunk"):
+        records[("paged_kv_write", REPORTED["paged_kv_write"])]["shapes"][
+            stag]["launches"] = bf16_launches["paged_kv_write"]
+    log("bf16 pools' serving runs, launches: " + json.dumps(bf16_launches))
     kernels = []
     for kname, (source, replaces) in KERNELS.items():
         tag = REPORTED[kname]

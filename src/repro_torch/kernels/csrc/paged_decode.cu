@@ -5,8 +5,9 @@
 // `_paged_body`) of src/repro/kernels/paged_decode.py, and runs once per
 // layer per decode step.
 //
-// What it computes: q (B, H, D) fp32; k/v pools (P, page, KVH, D), fp32 or
-// int8 codes with (P, page, KVH) fp32 scales; page_table (B, n_pages) int32;
+// What it computes: q (B, H, D) fp32; k/v pools (P, page, KVH, D), fp32,
+// bf16 or int8 codes with (P, page, KVH) fp32 scales; page_table (B,
+// n_pages) int32;
 // lengths (B,) int32.  Head h attends with kv head h / (H / KVH) over the
 // sequence's first lengths[b] tokens (clamped to the table); fp32 softmax;
 // length 0 gives exact zeros.
@@ -27,22 +28,22 @@
 
 #include "paged_split.cuh"
 
-// quantized != 0: k/v hold int8 codes and ks/vs the fp32 scale pools;
-// otherwise k/v are fp32 and ks/vs are ignored.  scratch holds the
-// plan's partials; plan is the int array of plans.ATTENTION_FIELDS.
+// elem_bytes: 4, k/v are fp32; 2, bf16; 1, int8 codes with ks/vs the
+// fp32 scale pools (ignored otherwise).  scratch holds the plan's
+// partials; plan is the int array of plans.ATTENTION_FIELDS.
 extern "C" int repro_paged_decode(const void* q, const void* k, const void* v,
                                   const void* ks, const void* vs,
                                   const void* table, const void* lengths,
                                   void* out, void* scratch, int B, int H,
                                   int KVH, int D, int page, int n_pages,
-                                  float scale, int quantized,
+                                  float scale, int elem_bytes,
                                   const int* plan, void* stream) {
   paged_split::Args a{};
   a.q = static_cast<const float*>(q);
   a.k = k;
   a.v = v;
-  a.ks = quantized ? static_cast<const float*>(ks) : nullptr;
-  a.vs = quantized ? static_cast<const float*>(vs) : nullptr;
+  a.ks = elem_bytes == 1 ? static_cast<const float*>(ks) : nullptr;
+  a.vs = elem_bytes == 1 ? static_cast<const float*>(vs) : nullptr;
   a.table = static_cast<const int*>(table);
   a.starts = static_cast<const int*>(lengths);
   a.counts = nullptr;
@@ -58,5 +59,5 @@ extern "C" int repro_paged_decode(const void* q, const void* k, const void* v,
   const size_t acc = (size_t)B * H * plan[1] * D;  // plan[1]: spans
   a.part_acc = static_cast<float*>(scratch);
   a.part_ml = a.part_acc + acc;
-  return paged_split::run(a, plan, quantized, stream);
+  return paged_split::run(a, plan, elem_bytes, stream);
 }

@@ -8,8 +8,8 @@
 // lengths (ops.paged_verify), once per layer per verify step.
 //
 // What it computes: q (R, C, H, D) fp32, where row r's query c sits at
-// position starts[r] + c; k/v pools (P, page, KVH, D), fp32 or int8 codes
-// with (P, page, KVH) fp32 scales; ctx_rows (R, ctx_pages) int32 leading
+// position starts[r] + c; k/v pools (P, page, KVH, D), fp32, bf16 or int8
+// codes with (P, page, KVH) fp32 scales; ctx_rows (R, ctx_pages) int32 leading
 // page-table entries; starts, counts (R,) int32.  Query c sees kv positions
 // p with p <= starts + c and p < starts + counts (and within ctx_pages
 // pages); the mask uses the finite sentinel -1e30, and rows with counts ==
@@ -31,23 +31,23 @@
 
 #include "paged_split.cuh"
 
-// quantized != 0: k/v hold int8 codes and ks/vs the fp32 scale pools;
-// otherwise k/v are fp32 and ks/vs are ignored.  scratch holds the
-// plan's partials; plan is the int array of plans.ATTENTION_FIELDS.
+// elem_bytes: 4, k/v are fp32; 2, bf16; 1, int8 codes with ks/vs the
+// fp32 scale pools (ignored otherwise).  scratch holds the plan's
+// partials; plan is the int array of plans.ATTENTION_FIELDS.
 extern "C" int repro_paged_prefill(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* ctx_rows, const void* starts,
                                    const void* counts, void* out,
                                    void* scratch, int R, int C, int H,
                                    int KVH, int D, int page, int ctx_pages,
-                                   float scale, int quantized,
+                                   float scale, int elem_bytes,
                                    const int* plan, void* stream) {
   paged_split::Args a{};
   a.q = static_cast<const float*>(q);
   a.k = k;
   a.v = v;
-  a.ks = quantized ? static_cast<const float*>(ks) : nullptr;
-  a.vs = quantized ? static_cast<const float*>(vs) : nullptr;
+  a.ks = elem_bytes == 1 ? static_cast<const float*>(ks) : nullptr;
+  a.vs = elem_bytes == 1 ? static_cast<const float*>(vs) : nullptr;
   a.table = static_cast<const int*>(ctx_rows);
   a.starts = static_cast<const int*>(starts);
   a.counts = static_cast<const int*>(counts);
@@ -63,5 +63,5 @@ extern "C" int repro_paged_prefill(const void* q, const void* k, const void* v,
   const size_t acc = (size_t)R * C * H * plan[1] * D;  // plan[1]: spans
   a.part_acc = static_cast<float*>(scratch);
   a.part_ml = a.part_acc + acc;
-  return paged_split::run(a, plan, quantized, stream);
+  return paged_split::run(a, plan, elem_bytes, stream);
 }

@@ -3,8 +3,9 @@
 //
 // The problem, in the prefill form (decode is the same with one query
 // position a row at length - 1): q (R, C, H, D) fp32, where row r's query
-// c sits at position starts[r] + c; k/v pools (P, page, KVH, D), fp32 or
-// int8 codes with (P, page, KVH) fp32 scales; a page table (R, pages).
+// c sits at position starts[r] + c; k/v pools (P, page, KVH, D): fp32,
+// bf16, or int8 codes with (P, page, KVH) fp32 scales; a page table
+// (R, pages).
 // Query c of row r sees positions p < min(starts + c + 1, starts + counts,
 // pages * page); the mask sentinel is the finite -1e30, and a query that
 // sees nothing gives exact zeros.
@@ -20,10 +21,13 @@
 //   position its tile sees returns before it loads anything.
 // * The block walks its span in kv tiles of D / 4 positions through two
 //   cp.async stages: the next tile's K and V rows (and int8 scales) are in
-//   flight while the current one is computed.  int8 codes are dequantized
-//   right after their stage lands.  Each token's row is looked up in the
-//   page table as it is copied, so a page past the written context is
-//   never read.
+//   flight while the current one is computed.  Narrow rows (bf16, int8
+//   codes) land in a raw stage and are widened to fp32 right after: bf16
+//   exactly, int8 times its scale.  So every product below sees the same
+//   fp32 values as on a pool of pool.float() (bf16) or of the dequantized
+//   codes (int8), and a bf16 pool gives bitwise the output of its widened
+//   fp32 copy.  Each token's row is looked up in the page table as it is
+//   copied, so a page past the written context is never read.
 // * Scores: each thread holds 2 query rows x 4 kv positions, q and K read
 //   from shared memory as float4 along D.  The products of the fp32 inputs
 //   are summed in fp64 (each product is exact there) and the sum rounded
@@ -60,6 +64,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,9 +143,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// 8 bf16 at src (16-byte aligned) as 8 fp32 at dst (16-byte aligned),
+// exactly.
+__device__ __forceinline__ void widen8(const __nv_bfloat16* src, float* dst) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+  const float2 f0 = __bfloat1622float2(h[0]);
+  const float2 f1 = __bfloat1622float2(h[1]);
+  const float2 f2 = __bfloat1622float2(h[2]);
+  const float2 f3 = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+}
+
 // Start the copies of positions [base, base + n) of row r, kv head g, into
-// one stage: fp32 rows straight into the K (padded) and V tiles, int8
-// codes and scales into the raw stage.
+// one stage: fp32 rows straight into the K (padded) and V tiles; bf16 rows,
+// int8 codes and int8 scales into the raw stage (K rows, then V rows, then
+// the K and V scales).
 template <typename T>
 __device__ __forceinline__ void load_tile(const Args& a, int r, int g,
                                           int base, int n, float* k_dst,
@@ -152,16 +171,18 @@ __device__ __forceinline__ void load_tile(const Args& a, int r, int g,
   const int* trow = a.table + (size_t)r * a.table_pages;
   const char* kp = static_cast<const char*>(a.k);
   const char* vp = static_cast<const char*>(a.v);
-  constexpr bool kQuant = sizeof(T) == 1;
+  constexpr bool kNarrow = sizeof(T) < 4;
+  constexpr bool kScaled = sizeof(T) == 1;
   for (int e = threadIdx.x; e < n * units; e += blockDim.x) {
     const int t = e / units;
     const int u = e - t * units;
     const int pos = base + t;
     const size_t tok = (size_t)trow[pos / a.page] * a.page + pos % a.page;
     const size_t src = ((tok * a.KVH + g) * D) * sizeof(T) + (size_t)u * unit;
-    if (kQuant) {
-      cp_async(raw + t * D + u * unit, kp + src, unit);
-      cp_async(raw + (a.p.kv_tile + t) * D + u * unit, vp + src, unit);
+    if (kNarrow) {
+      cp_async(raw + t * row_bytes + u * unit, kp + src, unit);
+      cp_async(raw + (a.p.kv_tile + t) * row_bytes + u * unit, vp + src,
+               unit);
     } else {
       cp_async(reinterpret_cast<char*>(k_dst + t * (D + 4)) + u * unit,
                kp + src, unit);
@@ -169,7 +190,7 @@ __device__ __forceinline__ void load_tile(const Args& a, int r, int g,
                unit);
     }
   }
-  if (kQuant) {
+  if (kScaled) {
     float* sc = reinterpret_cast<float*>(raw + 2 * a.p.kv_tile * D);
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       const int pos = base + t;
@@ -193,7 +214,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   const int KT = p.kv_tile;
   const int rep = a.H / a.KVH;
   const int cap = a.table_pages * a.page;
-  constexpr bool kQuant = sizeof(T) == 1;
+  constexpr bool kNarrow = sizeof(T) < 4;  // widened after the raw stage
+  constexpr bool kScaled = sizeof(T) == 1;
 
   int st, live;
   row_bounds(a, r, st, live);
@@ -263,9 +285,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   for (int j = 0; j < n_tiles; ++j) {
     const int base = lo + j * KT;
     const int n_valid = min(KT, end - base);
-    const int stage = kQuant ? 0 : (j & 1);
+    const int stage = kNarrow ? 0 : (j & 1);
     if (j + 1 < n_tiles) {
-      const int nxt = kQuant ? 0 : ((j + 1) & 1);
+      const int nxt = kNarrow ? 0 : ((j + 1) & 1);
       load_tile<T>(a, r, g, base + KT, min(KT, end - base - KT),
                    k_s + nxt * (p.k_stage / 4), v_s + nxt * (p.v_stage / 4),
                    raw + ((j + 1) & 1) * p.raw_stage);
@@ -277,18 +299,31 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     __syncthreads();
     const float* kt = k_s + stage * (p.k_stage / 4);
     const float* vt = v_s + stage * (p.v_stage / 4);
-    if (kQuant) {
+    if constexpr (kNarrow) {
       const unsigned char* rs = raw + (j & 1) * p.raw_stage;
-      const int8_t* kc = reinterpret_cast<const int8_t*>(rs);
-      const int8_t* vc = kc + KT * D;
-      const float* sc = reinterpret_cast<const float*>(rs + 2 * KT * D);
+      const T* kc = reinterpret_cast<const T*>(rs);
+      const T* vc = kc + KT * D;
       float* kd = k_s;
       float* vd = v_s;
-      for (int e = tid; e < n_valid * D; e += blockDim.x) {
-        const int t = e / D;
-        const int i = e - t * D;
-        kd[t * KS + i] = static_cast<float>(kc[e]) * sc[t];
-        vd[e] = static_cast<float>(vc[e]) * sc[KT + t];
+      if constexpr (kScaled) {
+        const float* sc = reinterpret_cast<const float*>(rs + 2 * KT * D);
+        for (int e = tid; e < n_valid * D; e += blockDim.x) {
+          const int t = e / D;
+          const int i = e - t * D;
+          kd[t * KS + i] = static_cast<float>(kc[e]) * sc[t];
+          vd[e] = static_cast<float>(vc[e]) * sc[KT + t];
+        }
+      } else {
+        // bf16: 8 elements (16 bytes) a step, two float4 stores each.  A
+        // decode block has 32 threads: one element a step left the decode
+        // kernel 20% behind its time on fp32 pools (PERF.md, section 6).
+        const int R8 = D / 8;
+        for (int e = tid; e < n_valid * R8; e += blockDim.x) {
+          const int t = e / R8;
+          const int i = (e - t * R8) * 8;
+          widen8(kc + t * D + i, kd + t * KS + i);
+          widen8(vc + t * D + i, vd + t * D + i);
+        }
       }
       __syncthreads();
     }
@@ -469,11 +504,17 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int run(Args a, const int* plan, int quantized, void* stream) {
+// elem_bytes: 4 fp32 pools, 2 bf16 pools, 1 int8 codes with scales.
+inline int run(Args a, const int* plan, int elem_bytes, void* stream) {
   a.p = *reinterpret_cast<const Plan*>(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.R == 0 || a.C == 0) return static_cast<int>(cudaGetLastError());
-  return quantized ? launch<int8_t>(a, s) : launch<float>(a, s);
+  switch (elem_bytes) {
+    case 4: return launch<float>(a, s);
+    case 2: return launch<__nv_bfloat16>(a, s);
+    case 1: return launch<int8_t>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

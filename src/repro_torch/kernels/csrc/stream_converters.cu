@@ -71,7 +71,9 @@
 // multiply by the float reciprocal; ref.int8_quantize writes the same on
 // every device), and code = clamp(rint(x / scale), -127, 127), an IEEE
 // division (the build has no fast-math), rint rounding half to even as
-// torch.round does.
+// torch.round does.  bf16 pools round each fp32 element once, to nearest
+// even (__float2bfloat16_rn, as Tensor.to(torch.bfloat16) and XLA's
+// convert), and a lane stores two elements a 4-byte store.
 // Repeated destinations have no defined order; the paged callers never
 // repeat one.
 //
@@ -87,6 +89,7 @@
 // kernel's input_output_aliases, and the reference's 128-lane row padding
 // and pack_rows tail split have no counterpart here.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -153,7 +156,8 @@ __global__ void indirect_scatter_kernel(char* __restrict__ dst,
 
 // The paged K/V write (see the design note above): one warp per (token,
 // K|V, kv head) row of d floats, V floats a load (4 where d and every
-// base pointer allow, else 1).
+// base pointer allow, else 1), stored as E-byte pool elements: 4 fp32,
+// 2 bf16, 1 int8 codes with a scale.
 constexpr int kWriteThreads = 256;
 
 template <int V>
@@ -166,7 +170,7 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[V]) {
   }
 }
 
-template <int V, bool kQuant>
+template <int V, int E>
 __global__ void __launch_bounds__(kWriteThreads)
     paged_kv_write_kernel(const float* __restrict__ k_new,
                           const float* __restrict__ v_new,
@@ -197,7 +201,20 @@ __global__ void __launch_bounds__(kWriteThreads)
   if (pid < 0 || pid >= pool_pages) return;
   const long long row = ((long long)pid * page + pos % page) * kvh + h;
   const float* src = (is_v ? v_new : k_new) + (token * kvh + h) * d;
-  if constexpr (!kQuant) {
+  if constexpr (E == 2) {
+    __nv_bfloat16* dst =
+        static_cast<__nv_bfloat16*>(is_v ? v_pages : k_pages) + row * d;
+    for (int e = lane * V; e < d; e += 32 * V) {
+      if constexpr (V == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(src + e);
+        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dst + e);
+        o[0] = __floats2bfloat162_rn(x.x, x.y);
+        o[1] = __floats2bfloat162_rn(x.z, x.w);
+      } else {
+        dst[e] = __float2bfloat16_rn(src[e]);
+      }
+    }
+  } else if constexpr (E == 4) {
     float* dst = static_cast<float*>(is_v ? v_pages : k_pages) + row * d;
     for (int e = lane * V; e < d; e += 32 * V) {
       if constexpr (V == 4) {
@@ -240,7 +257,7 @@ __global__ void __launch_bounds__(kWriteThreads)
   }
 }
 
-template <int V, bool kQuant>
+template <int V, int E>
 cudaError_t launch_paged_kv_write(const void* k_new, const void* v_new,
                                   void* k_pages, void* v_pages,
                                   void* k_scale, void* v_scale,
@@ -251,7 +268,7 @@ cudaError_t launch_paged_kv_write(const void* k_new, const void* v_new,
   const long long per_block = kWriteThreads / 32;
   const long long blocks = (warps + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  paged_kv_write_kernel<V, kQuant><<<(unsigned)blocks, kWriteThreads, 0, s>>>(
+  paged_kv_write_kernel<V, E><<<(unsigned)blocks, kWriteThreads, 0, s>>>(
       static_cast<const float*>(k_new), static_cast<const float*>(v_new),
       k_pages, v_pages, static_cast<float*>(k_scale),
       static_cast<float*>(v_scale), static_cast<const int*>(table),
@@ -379,20 +396,20 @@ extern "C" int repro_indirect_scatter(void* dst, const void* packed,
 
 // Every valid token of a chunk (or an append) into its page, K and V, in
 // one launch.  k_new, v_new (rows, chunk, kvh, d) fp32; pools (pool_pages,
-// page, kvh, d), fp32, or int8 codes with (pool_pages, page, kvh) fp32
-// scales when `quantized`; table (rows, n_pages), starts, counts (rows,)
-// int32.  Token (r, c) goes to position starts[r] + c through table row r,
+// page, kvh, d) of elem_bytes elements: 4 fp32, 2 bf16, 1 int8 codes with
+// (pool_pages, page, kvh) fp32 scales; table (rows, n_pages), starts,
+// counts (rows,) int32.  Token (r, c) goes to position starts[r] + c through table row r,
 // and is dropped where c >= counts[r] or the position or its page id is
 // out of range.
 // `vec` 4: d % 4 == 0 and every row pointer allows 16-byte fp32 loads
-// (and 4-byte code stores); else 1.
+// (and 8-byte bf16 or 4-byte code stores); else 1.
 extern "C" int repro_paged_kv_write(const void* k_new, const void* v_new,
                                     void* k_pages, void* v_pages,
                                     void* k_scale, void* v_scale,
                                     const void* table, const void* starts,
                                     const void* counts, long long rows,
                                     int chunk, int n_pages, int pool_pages,
-                                    int page, int kvh, int d, int quantized,
+                                    int page, int kvh, int d, int elem_bytes,
                                     int vec, void* stream) {
   const long long warps = rows * chunk * 2 * kvh;
   if (warps <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
@@ -400,12 +417,21 @@ extern "C" int repro_paged_kv_write(const void* k_new, const void* v_new,
                         void*, const void*, const void*, const void*,
                         long long, int, int, int, int, int, int,
                         cudaStream_t);
-  if (quantized) {
-    launch = vec == 4 ? &launch_paged_kv_write<4, true>
-                      : &launch_paged_kv_write<1, true>;
-  } else {
-    launch = vec == 4 ? &launch_paged_kv_write<4, false>
-                      : &launch_paged_kv_write<1, false>;
+  switch (elem_bytes) {
+    case 4:
+      launch = vec == 4 ? &launch_paged_kv_write<4, 4>
+                        : &launch_paged_kv_write<1, 4>;
+      break;
+    case 2:
+      launch = vec == 4 ? &launch_paged_kv_write<4, 2>
+                        : &launch_paged_kv_write<1, 2>;
+      break;
+    case 1:
+      launch = vec == 4 ? &launch_paged_kv_write<4, 1>
+                        : &launch_paged_kv_write<1, 1>;
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(launch(k_new, v_new, k_pages, v_pages, k_scale,
                                  v_scale, table, starts, counts, warps,

@@ -133,10 +133,10 @@ _SIGNATURES = {  # C entry: (library, argument types)
     "repro_strided_gather": ("stream_converters", _STRIDED_ARGS),
     "repro_strided_scatter": ("stream_converters", _STRIDED_ARGS),
     # k_new, v_new, the four pools, table, starts, counts; rows, chunk,
-    # n_pages, pool_pages, page, kvh, d, quantized, vec.
+    # n_pages, pool_pages, page, kvh, d, elem bytes (4, 2, 1), vec.
     "repro_paged_kv_write": ("stream_converters",
                              [_P] * 9 + [_L] + [_I] * 8 + [_P]),
-    # ... out, scratch, shape ints, scale, quantized, then the plan (an
+    # ... out, scratch, shape ints, scale, elem bytes, then the plan (an
     # int array in the order of plans.ATTENTION_FIELDS) and the stream.
     "repro_paged_decode": ("paged_decode",
                            [_P] * 9 + [_I] * 6 + [_F, _I, _P, _P]),
@@ -482,27 +482,35 @@ def moe_combine(outputs: torch.Tensor, src_index: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_pools(k_pages, v_pages, k_scale, v_scale, device) -> bool:
-    """Validate the pool layout the attention kernels take; returns whether
-    the pools are int8 codes with scales."""
+#: Pool dtype → the element bytes the paged kernels' C entries take.
+_POOL_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}
+
+
+def _check_pools(k_pages, v_pages, k_scale, v_scale, device) -> int:
+    """Validate the pool layout the paged kernels take; returns the pools'
+    element bytes: 4 (fp32) or 2 (bf16) without scales, 1 (int8 codes)
+    with their fp32 scale pools.  Anything else raises."""
     quantized = k_scale is not None
-    want = torch.int8 if quantized else torch.float32
+    want = ((torch.int8,) if quantized
+            else (torch.float32, torch.bfloat16))
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         _check(t.device == device and t.dim() == 4 and t.is_contiguous()
-               and t.dtype == want,
-               f"{name} must be a contiguous (P, page, KVH, D) {want} pool "
-               f"on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+               and t.dtype in want and t.dtype == k_pages.dtype,
+               f"{name} must be a contiguous (P, page, KVH, D) pool on "
+               f"{device} of k_pages' dtype, one of {list(want)} "
+               f"{'with' if quantized else 'without'} scale pools; got "
+               f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if quantized:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             _check(t is not None and t.device == device
                    and t.dtype == torch.float32 and t.is_contiguous()
                    and tuple(t.shape) == tuple(k_pages.shape[:3]),
                    f"{name} must be a contiguous (P, page, KVH) float32 pool")
-    return quantized
+    return _POOL_ELEM_BYTES[k_pages.dtype]
 
 
 def _attention_plan(kind, rows, chunk, h, kvh, d, page, table_pages,
-                    quantized, *tensors):
+                    elem_bytes, *tensors):
     """:func:`.plans.attention_plan` for a launch over ``tensors`` (q and
     the pools), whose base addresses bound the copy unit."""
     align = 0
@@ -510,7 +518,7 @@ def _attention_plan(kind, rows, chunk, h, kvh, d, page, table_pages,
         align |= t.data_ptr()
     align = 16 if align % 16 == 0 else (4 if align % 4 == 0 else 1)
     return attention_plan(kind, rows, chunk, h, kvh, d, page, table_pages,
-                          quantized, align)
+                          elem_bytes, align)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -537,10 +545,12 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Decode one token per sequence against the paged pool.
 
-    q (B, H, D) float32; pools (P, page, KVH, D); page_table (B, n_pages);
-    lengths (B,).  ``k_scale``/``v_scale`` — ``(P, page, KVH)`` fp32 — mark
-    int8 pools; the kernel dequantizes each page after its load, the plain
-    version the whole pool up front (:func:`ref.dequantize_pages`).
+    q (B, H, D) float32; pools (P, page, KVH, D) fp32 or bf16, or int8
+    codes with ``k_scale``/``v_scale`` — ``(P, page, KVH)`` fp32; page_table
+    (B, n_pages); lengths (B,).  The kernel widens each bf16 row to fp32
+    after its load and dequantizes each int8 row; the plain version widens
+    the gathered rows and dequantizes the whole pool up front
+    (:func:`ref.dequantize_pages`).
     """
     if not _use_kernel(impl, q):
         if k_scale is not None:
@@ -553,7 +563,7 @@ def paged_decode_attention(
            f"q must be (B, H, D) float32, got {tuple(q.shape)} {q.dtype}")
     q = q.contiguous()
     b, h, d = q.shape
-    quantized = _check_pools(k_pages, v_pages, k_scale, v_scale, q.device)
+    elem = _check_pools(k_pages, v_pages, k_scale, v_scale, q.device)
     _, page, kvh, dk = k_pages.shape
     _check(dk == d and h % kvh == 0,
            f"q heads {h} x {d} do not group over pool heads {kvh} x {dk}")
@@ -563,14 +573,13 @@ def paged_decode_attention(
            "page_table must be (B, n_pages) and lengths (B,)")
     out = torch.empty_like(q)
     plan = _attention_plan("decode", b, 1, h, kvh, d, page, table.shape[1],
-                           quantized, q, k_pages, v_pages)
+                           elem, q, k_pages, v_pages)
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=q.device)
     _launch("repro_paged_decode", _ptr(q), _ptr(k_pages), _ptr(v_pages),
             _ptr(k_scale), _ptr(v_scale), _ptr(table), _ptr(lens), _ptr(out),
             _ptr(scratch), b, h, kvh, d, page, table.shape[1],
-            _softmax_scale(scale, d), int(quantized),
-            _plan_array(plan), _stream(q))
+            _softmax_scale(scale, d), elem, _plan_array(plan), _stream(q))
     paged_decode_attention.plan = plan
     paged_decode_attention.launches += 1
     return out
@@ -625,7 +634,7 @@ def _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts, k_scale,
            f"q must be (R, C, H, D) float32, got {tuple(q.shape)} {q.dtype}")
     q = q.contiguous()
     r, c, h, d = q.shape
-    quantized = _check_pools(k_pages, v_pages, k_scale, v_scale, q.device)
+    elem = _check_pools(k_pages, v_pages, k_scale, v_scale, q.device)
     _, page, kvh, dk = k_pages.shape
     _check(dk == d and h % kvh == 0,
            f"q heads {h} x {d} do not group over pool heads {kvh} x {dk}")
@@ -637,14 +646,13 @@ def _prefill_kernel(q, k_pages, v_pages, ctx_rows, starts, counts, k_scale,
            "ctx_rows must be (R, ctx_pages) and starts/counts (R,)")
     out = torch.empty_like(q)
     plan = _attention_plan("prefill", r, c, h, kvh, d, page, rows.shape[1],
-                           quantized, q, k_pages, v_pages)
+                           elem, q, k_pages, v_pages)
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=q.device)
     _launch("repro_paged_prefill", _ptr(q), _ptr(k_pages), _ptr(v_pages),
             _ptr(k_scale), _ptr(v_scale), _ptr(rows), _ptr(st), _ptr(ct),
             _ptr(out), _ptr(scratch), r, c, h, kvh, d, page, rows.shape[1],
-            _softmax_scale(scale, d), int(quantized), _plan_array(plan),
-            _stream(q))
+            _softmax_scale(scale, d), elem, _plan_array(plan), _stream(q))
     return out, plan
 
 
@@ -716,8 +724,9 @@ def paged_kv_write(
     impl: str = "cuda",
 ):
     """Write every valid token of ``k_new`` / ``v_new`` ``(R, C, KVH, D)``
-    straight into its page, in place: K and V (int8 codes and scales with
-    the scale pools given) in one launch.
+    fp32 straight into its page, in place: K and V in one launch, stored
+    as the pools' elements (fp32; bf16 rounded to nearest even; int8 codes
+    and scales with the scale pools given).
 
     Token ``(r, c)`` lands at position ``starts[r] + c`` through table row
     ``rows[r]``; it is dropped where ``c >= counts[r]``, the position lies
@@ -731,7 +740,7 @@ def paged_kv_write(
         return ref.paged_kv_write(k_pages, v_pages, k_new, v_new, rows,
                                   starts, counts, k_scale, v_scale)
     dev = k_pages.device
-    quantized = _check_pools(k_pages, v_pages, k_scale, v_scale, dev)
+    elem = _check_pools(k_pages, v_pages, k_scale, v_scale, dev)
     p, page, kvh, d = k_pages.shape
     r, c = k_new.shape[:2]
     for name, t in (("k_new", k_new), ("v_new", v_new)):
@@ -752,7 +761,7 @@ def paged_kv_write(
     _launch("repro_paged_kv_write", _ptr(k_new), _ptr(v_new), _ptr(k_pages),
             _ptr(v_pages), _ptr(k_scale), _ptr(v_scale), _ptr(table),
             _ptr(starts), _ptr(counts), r, c, table.shape[1], p, page, kvh,
-            d, int(quantized), vec, _stream(k_pages))
+            d, elem, vec, _stream(k_pages))
     paged_kv_write.launches += 1
     if k_scale is not None:
         return k_pages, v_pages, k_scale, v_scale

@@ -76,6 +76,8 @@ PREFILL_SPAN = 64         # ... a prefill / verify block
 ATTN_TILE_FLOATS = 8192   # a query tile's rows x head_dim, at most
 ATTN_HEAD_DIMS = (16, 32, 64, 128)
 ATTN_MAX_THREADS = 256    # the kernels' __launch_bounds__
+#: Pool element bytes the paged attention kernels take.
+ATTN_ELEM_BYTES = {4: "fp32", 2: "bf16", 1: "int8"}
 COMBINE_THREADS = 256
 
 
@@ -280,7 +282,8 @@ class AttentionPlan:
     unit: int         # cp.async bytes of the q and K/V rows: 16 or 4
     k_off: int        # shared memory regions, bytes from the base (q at 0)
     v_off: int
-    raw_off: int      # int8 codes and scales as loaded (0 bytes for fp32)
+    raw_off: int      # bf16 rows, int8 codes and scales as loaded
+                      # (0 bytes for fp32)
     pt_off: int       # probabilities, kv_tile x (tile_rows + 4)
     alpha_off: int    # a tile's rescale factor per query row
     k_stage: int      # bytes between the two stages of a region
@@ -355,11 +358,13 @@ def _lcm(a: int, b: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def attention_plan(kind: str, rows: int, chunk: int, heads: int,
                    kv_heads: int, head_dim: int, page: int,
-                   table_pages: int, quantized: bool,
+                   table_pages: int, elem_bytes: int,
                    align: int) -> AttentionPlan:
     """The plan of one paged attention launch.  ``kind`` names the span
-    constant ("decode" or "prefill"); ``align`` is an integer that the q,
-    K and V base pointers are all multiples of (their bitwise or).  The
+    constant ("decode" or "prefill"); ``elem_bytes`` is the pools'
+    element: 4 (fp32), 2 (bf16) or 1 (int8 codes with fp32 scales);
+    ``align`` is an integer that the q, K and V base pointers are all
+    multiples of (their bitwise or).  The
     span, the kv tile and so every row's split depend only on ``kind``,
     ``head_dim`` and ``page``: never on the rows, the table's width or
     the other rows' lengths.  Shapes no plan serves raise ``ValueError``.
@@ -376,11 +381,16 @@ def attention_plan(kind: str, rows: int, chunk: int, heads: int,
             f"{heads} heads over {kv_heads} kv heads of {d} (head_dim must "
             f"be one of {ATTN_HEAD_DIMS}), page {page}, {table_pages} "
             f"table pages")
+    if elem_bytes not in ATTN_ELEM_BYTES:
+        raise ValueError(f"paged attention: pool elements of {elem_bytes} "
+                         f"bytes; have {sorted(ATTN_ELEM_BYTES)}")
     kv_tile = d // 4
-    unit = _unit(align, d * (1 if quantized else 4))
+    unit = _unit(align, d * elem_bytes)
     if unit == 1:
-        raise ValueError(f"paged attention: rows of {d} int8 codes at an "
-                         f"odd address have no cp.async unit")
+        raise ValueError(f"paged attention: rows of {d} "
+                         f"{ATTN_ELEM_BYTES[elem_bytes]} elements at an "
+                         f"address off 4-byte alignment have no cp.async "
+                         f"unit")
     target = DECODE_SPAN if kind == "decode" else PREFILL_SPAN
     base = _lcm(page, kv_tile)
     span = base * max(1, target // base)
@@ -394,10 +404,17 @@ def attention_plan(kind: str, rows: int, chunk: int, heads: int,
                          f"{d} need {threads} threads, more than "
                          f"{ATTN_MAX_THREADS}")
     q_bytes = tile_rows * d * 4
-    stages = 1 if quantized else 2      # int8 dequantizes into one buffer
+    # fp32 rows land in two stages of the fp32 tiles.  Narrow rows (bf16,
+    # int8 codes and their scales) land in two raw stages and are widened
+    # into one stage of the fp32 tiles: a second would hold nothing the
+    # raw stage does not already keep in flight.
+    narrow = elem_bytes < 4
+    stages = 1 if narrow else 2
     k_stage = kv_tile * (d + 4) * 4
     v_stage = kv_tile * d * 4
-    raw_stage = _align16(2 * kv_tile * d + 8 * kv_tile) if quantized else 0
+    scales = 8 * kv_tile if elem_bytes == 1 else 0
+    raw_stage = (_align16(2 * kv_tile * d * elem_bytes + scales) if narrow
+                 else 0)
     k_off = q_bytes
     v_off = k_off + stages * k_stage
     raw_off = v_off + stages * v_stage

@@ -411,17 +411,18 @@ def paged_decode_attention(
     """Decode attention over a paged KV cache (``repro.kernels.ref``
     ``paged_decode_attention``).
 
-    q (B, H, D); k/v_pages (P, page, KVH, D) float; page_table
-    (B, pages_per_seq) int32 physical page ids; lengths (B,) live tokens.
-    A sequence of length 0 gives exact zeros.
+    q (B, H, D); k/v_pages (P, page, KVH, D) fp32 or bf16 (the gathered
+    rows are widened to fp32, exactly); page_table (B, pages_per_seq)
+    int32 physical page ids; lengths (B,) live tokens.  A sequence of
+    length 0 gives exact zeros.
     """
     b, h, d = q.shape
     pages_per_seq = page_table.shape[1]
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     skv = pages_per_seq * page
     table = page_table.long()
-    kg = k_pages[table].reshape(b, skv, kvh, d).transpose(1, 2)
-    vg = v_pages[table].reshape(b, skv, kvh, d).transpose(1, 2)
+    kg = k_pages[table].float().reshape(b, skv, kvh, d).transpose(1, 2)
+    vg = v_pages[table].float().reshape(b, skv, kvh, d).transpose(1, 2)
     rep = h // kvh
     kg = kg.repeat_interleave(rep, dim=1)
     vg = vg.repeat_interleave(rep, dim=1)
@@ -449,16 +450,17 @@ def paged_prefill_attention(
     q (R, C, H, D): row r's query ``c`` sits at ``starts[r] + c`` and sees
     positions ``0 .. starts[r] + c``, capped at ``starts[r] + counts[r]``.
     ctx_rows (R, ctx_pages) leading page-table entries; starts/counts (R,).
-    The mask uses a finite sentinel (the float32 minimum) and zeroes masked
-    weights, so rows with ``counts == 0`` give exact zeros, never NaN.
+    Pools fp32 or bf16 (widened to fp32 after the gather).  The mask uses
+    a finite sentinel (the float32 minimum) and zeroes masked weights, so
+    rows with ``counts == 0`` give exact zeros, never NaN.
     """
     r, c, h, d = q.shape
     page, kvh = k_pages.shape[1], k_pages.shape[2]
     ctx_pages = ctx_rows.shape[1]
     skv = ctx_pages * page
     flat = ctx_rows.reshape(-1).long()
-    kg = k_pages[flat].reshape(r, skv, kvh, d)
-    vg = v_pages[flat].reshape(r, skv, kvh, d)
+    kg = k_pages[flat].float().reshape(r, skv, kvh, d)
+    vg = v_pages[flat].float().reshape(r, skv, kvh, d)
     rep = h // kvh
     kg = kg.repeat_interleave(rep, dim=2)                   # (R, S, H, D)
     vg = vg.repeat_interleave(rep, dim=2)
@@ -537,9 +539,10 @@ def paged_kv_append(
     len_b % page)``.  Inactive sequences (``active`` bool, or 0/1 ints),
     appends that fall past the table row and page ids of ``P`` or more
     write nothing (a negative id wraps, as in the reference); inactive ones
-    keep their length.  With the ``(P, page, KVH)`` scale pools given, rows
-    are quantized on write (:func:`quantize_kv`): codes into the pages,
-    scales into the scale pools at the same slots.
+    keep their length.  Rows are stored in the pool's dtype (rounded to
+    nearest even into a bf16 pool).  With the ``(P, page, KVH)`` scale
+    pools given, rows are quantized on write (:func:`quantize_kv`): codes
+    into the pages, scales into the scale pools at the same slots.
 
     Returns ``(k_pages, v_pages, new_lengths)``, plus ``(k_scale,
     v_scale)`` when quantizing.
@@ -558,8 +561,8 @@ def paged_kv_append(
     pids = page_table.long().gather(1, slot[:, None])[:, 0]
     keep = active & (lens < n_pages * page) & (pids < p)
     flat = (pids * page + lens % page)[keep]
-    k_pages.view(p * page, kvh, d)[flat] = k_new[keep]
-    v_pages.view(p * page, kvh, d)[flat] = v_new[keep]
+    k_pages.view(p * page, kvh, d)[flat] = k_new[keep].to(k_pages.dtype)
+    v_pages.view(p * page, kvh, d)[flat] = v_new[keep].to(v_pages.dtype)
     new_len = lengths + active.to(lengths.dtype)
     if quantized:
         k_scale.view(p * page, kvh)[flat] = k_s[keep]
@@ -586,8 +589,9 @@ def paged_kv_write_chunk(
     through its page-table row ``rows[r]``; rows with ``counts == 0``, and
     page ids of ``P`` or more, write nothing.  A position past the table
     row takes its last entry, as the reference's oracle does (the kernel
-    drops it: :func:`paged_kv_write`).  Quantizes on write when the scale
-    pools are given.  Returns ``(k_pages, v_pages)``, plus ``(k_scale,
+    drops it: :func:`paged_kv_write`).  Stores in the pool's dtype, as
+    :func:`paged_kv_append`; quantizes on write when the scale pools are
+    given.  Returns ``(k_pages, v_pages)``, plus ``(k_scale,
     v_scale)`` when quantizing.
     """
     p, page, kvh, d = k_pages.shape
@@ -603,8 +607,10 @@ def paged_kv_write_chunk(
     valid = ((ar[None, :] < counts.long()[:, None])
              & (pids < p)).reshape(-1)
     flat = (pids * page + pos % page).reshape(-1)[valid]
-    k_pages.view(p * page, kvh, d)[flat] = k_new.reshape(-1, kvh, d)[valid]
-    v_pages.view(p * page, kvh, d)[flat] = v_new.reshape(-1, kvh, d)[valid]
+    k_pages.view(p * page, kvh, d)[flat] = \
+        k_new.reshape(-1, kvh, d)[valid].to(k_pages.dtype)
+    v_pages.view(p * page, kvh, d)[flat] = \
+        v_new.reshape(-1, kvh, d)[valid].to(v_pages.dtype)
     if quantized:
         k_scale.view(p * page, kvh)[flat] = k_s.reshape(-1, kvh)[valid]
         v_scale.view(p * page, kvh)[flat] = v_s.reshape(-1, kvh)[valid]
@@ -645,9 +651,11 @@ def paged_kv_write(
     Token ``(r, c)`` of ``k_new`` / ``v_new`` ``(R, C, KVH, D)`` goes
     straight to its pool row (:func:`paged_kv_destinations`); dropped
     tokens write nothing.  An append is ``C = 1`` with ``lengths`` as
-    ``starts`` and ``active`` as ``counts``.  With the scale pools given
-    the rows are quantized on write (:func:`quantize_kv`).  Returns the
-    pools it was given.
+    ``starts`` and ``active`` as ``counts``.  fp32 rows go into an fp32
+    pool as they are and into a bf16 pool rounded to nearest even
+    (``Tensor.to``, as the kernel's ``__float2bfloat16_rn``); with the
+    scale pools given they are quantized on write (:func:`quantize_kv`).
+    Returns the pools it was given.
     """
     p, page, kvh, d = k_pages.shape
     r, c = k_new.shape[:2]
@@ -661,8 +669,8 @@ def paged_kv_write(
         vn, vs = quantize_kv(vn)
         k_scale.view(p * page, kvh)[flat] = ks
         v_scale.view(p * page, kvh)[flat] = vs
-    k_pages.view(p * page, kvh, d)[flat] = kn
-    v_pages.view(p * page, kvh, d)[flat] = vn
+    k_pages.view(p * page, kvh, d)[flat] = kn.to(k_pages.dtype)
+    v_pages.view(p * page, kvh, d)[flat] = vn.to(v_pages.dtype)
     if k_scale is not None:
         return k_pages, v_pages, k_scale, v_scale
     return k_pages, v_pages

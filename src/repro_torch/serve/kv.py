@@ -31,25 +31,19 @@ __all__ = ["KV_DTYPES", "OutOfPages", "PagedKVCache", "resolve_kv_dtype"]
 
 #: kv_dtype name → pool dtype.
 KV_DTYPES = {
-    "fp32": torch.float32, "float32": torch.float32, "int8": torch.int8,
+    "fp32": torch.float32, "float32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "int8": torch.int8,
 }
-
-_BF16_LATER = (
-    "bf16 KV pools are not in the port yet (ROADMAP queue A, item 10: "
-    "bf16 KV pools); use kv_dtype='fp32' or 'int8'"
-)
 
 
 def resolve_kv_dtype(cfg: ArchConfig,
                      kv_dtype: Union[None, str, torch.dtype]) -> torch.dtype:
     """Pool dtype for ``kv_dtype``: a name from :data:`KV_DTYPES`, a torch
-    dtype, or ``None`` for the config's compute dtype.  bf16, asked for by
-    name or through a bf16 config, raises ``NotImplementedError``."""
+    dtype, or ``None`` for the config's compute dtype (bf16 for every
+    full-size config, as in the reference)."""
     if kv_dtype is None:
         dt = cfg.compute_dtype
     elif isinstance(kv_dtype, str):
-        if kv_dtype in ("bf16", "bfloat16"):
-            raise NotImplementedError(_BF16_LATER)
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"unknown kv_dtype {kv_dtype!r}; have {sorted(KV_DTYPES)}"
@@ -57,9 +51,7 @@ def resolve_kv_dtype(cfg: ArchConfig,
         dt = KV_DTYPES[kv_dtype]
     else:
         dt = kv_dtype
-    if dt == torch.bfloat16:
-        raise NotImplementedError(_BF16_LATER)
-    if dt not in (torch.float32, torch.int8):
+    if dt not in (torch.float32, torch.bfloat16, torch.int8):
         raise ValueError(f"unsupported KV pool dtype {dt}")
     return dt
 
@@ -68,9 +60,10 @@ def resolve_kv_dtype(cfg: ArchConfig,
 class PagedKVCache:
     """Physical page pool + per-sequence page tables (one per layer stack).
 
-    ``k_pages``/``v_pages`` are ``(L, P, page, KVH, hd)`` device tensors
-    (int8 codes in int8 mode, with ``(L, P, page, KVH)`` fp32 scale pools
-    ``k_scale``/``v_scale``, one scale per page token slot per KV head).
+    ``k_pages``/``v_pages`` are ``(L, P, page, KVH, hd)`` device tensors:
+    fp32, bf16 (rows rounded once, when written), or int8 codes with
+    ``(L, P, page, KVH)`` fp32 scale pools ``k_scale``/``v_scale``, one
+    scale per page token slot per KV head.
     ``page_table`` ``(B, n_pages)`` and ``lengths`` ``(B,)`` are int32
     device tensors with numpy shadows on the host.
 

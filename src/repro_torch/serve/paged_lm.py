@@ -270,8 +270,12 @@ class PagedLM:
 
     ``impl='cuda'`` runs the kernels (their plain versions for CPU tensors);
     ``impl='ref'`` runs the plain versions everywhere.  ``kv_dtype`` is
-    ``'fp32'`` or ``'int8'`` (quantize on write, dequantize after each page
-    load); the matching cache must be created with the same ``kv_dtype``.
+    ``'fp32'``, ``'bf16'`` (K/V rows rounded to bf16 once, when written,
+    and widened to fp32 after each load; the weights, q and all arithmetic
+    stay fp32, as in the reference), ``'int8'`` (quantize on write,
+    dequantize after each page load), a torch dtype, or ``None`` for the
+    config's compute dtype (bf16 for the full-size configs); the matching
+    cache must be created with the same ``kv_dtype``.
     ``spec_k > 1`` serves speculatively: each decode launch step scores the
     feed token and ``spec_k - 1`` drafts from ``drafter`` (an
     :class:`~.drafter.NGramDrafter` by default).  ``device=None`` means
@@ -347,7 +351,8 @@ class PagedLM:
 
     @property
     def kv_elem_bits(self) -> int:
-        """Element width of the KV pools on the stream (32 or 8 bits)."""
+        """Element width of the KV pools on the stream (32, 16 or 8
+        bits)."""
         return self.kv_dtype.itemsize * 8
 
     @property

@@ -45,8 +45,8 @@ SMALL_SHAPES = {
 ALL_SHAPES = {**SMOKE_SHAPES, **SMALL_SHAPES}
 
 
-def _plan(shape, quantized=False, align=256):
-    return plans.attention_plan(*shape, quantized=quantized, align=align)
+def _plan(shape, elem_bytes=4, align=256):
+    return plans.attention_plan(*shape, elem_bytes=elem_bytes, align=align)
 
 
 def _rows(plan, rng):
@@ -117,7 +117,7 @@ def test_split_of_a_row_does_not_depend_on_the_batch(name):
     for r2 in (1, rows, 8, 33):
         for p2 in (pages, pages + 1, 2 * pages + 3):
             other = plans.attention_plan(kind, r2, chunk, h, kvh, d, page,
-                                         p2, quantized=False, align=256)
+                                         p2, elem_bytes=4, align=256)
             assert (other.span, other.kv_tile, other.tq) == (
                 base.span, base.kv_tile, base.tq)
             for start, count in ((0, 1), (base.span + 1, 3), (7, 0)):
@@ -129,8 +129,8 @@ def test_split_of_a_row_does_not_depend_on_the_batch(name):
                 for c in range(chunk):
                     assert other.query_spans(start, count, c) == \
                         base.query_spans(start, count, c)
-    for quantized in (False, True):
-        q = _plan(ALL_SHAPES[name], quantized=quantized, align=4)
+    for elem_bytes in (4, 2, 1):
+        q = _plan(ALL_SHAPES[name], elem_bytes=elem_bytes, align=4)
         assert (q.span, q.kv_tile, q.tq) == (base.span, base.kv_tile,
                                              base.tq)
 
@@ -184,11 +184,11 @@ def test_smoke_shapes_fill_the_card():
 
 def test_unplannable_shapes_raise():
     with pytest.raises(ValueError, match="head_dim"):
-        plans.attention_plan("decode", 2, 1, 4, 2, 24, 4, 4, False, 256)
+        plans.attention_plan("decode", 2, 1, 4, 2, 24, 4, 4, 4, 256)
     with pytest.raises(ValueError, match="threads"):
-        plans.attention_plan("prefill", 2, 4, 512, 2, 128, 4, 4, False, 256)
+        plans.attention_plan("prefill", 2, 4, 512, 2, 128, 4, 4, 4, 256)
     with pytest.raises(ValueError, match="kind"):
-        plans.attention_plan("verify", 2, 4, 8, 2, 128, 4, 4, False, 256)
+        plans.attention_plan("verify", 2, 4, 8, 2, 128, 4, 4, 4, 256)
 
 
 # ---------------------------------------------------------------------------

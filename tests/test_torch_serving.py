@@ -206,15 +206,27 @@ def test_prefill_and_decode_logits_close_to_jax(jax_serve, jax_models,
 
 
 def test_unported_modes_raise():
+    """Pool dtypes the reference has no name for raise; every bf16
+    spelling, and ``None`` on a bf16 config, builds bf16 pools and serves.
+    A plain model serves with ``spec_k == 1``."""
     params = PagedLM(CFG, device=CPU).params
-    for name in ("bf16", "bfloat16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name in ("fp16", "float16", torch.float16):
+        with pytest.raises(ValueError, match="kv_dtype|KV pool dtype"):
             PagedLM(CFG, device=CPU, kv_dtype=name, params=params)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="kv_dtype|KV pool dtype"):
             PagedKVCache.create(CFG, 2, 16, page=4, kv_dtype=name, device=CPU)
     bf16_cfg = dataclasses.replace(CFG, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedLM(bf16_cfg, device=CPU, params=params)
+    for cfg, name in ((CFG, "bf16"), (CFG, "bfloat16"),
+                      (CFG, torch.bfloat16), (bf16_cfg, None)):
+        model = PagedLM(cfg, device=CPU, kv_dtype=name, params=params)
+        cache = PagedKVCache.create(cfg, 2, 16, page=4, kv_dtype=name,
+                                    device=CPU)
+        assert model.kv_dtype == cache.k_pages.dtype == torch.bfloat16
+        assert model.kv_elem_bits == 16 and cache.k_scale is None
+        out, _ = _run(Scheduler, Request, model, cache, _prompts(0, (5, 3)),
+                      3)
+        assert sorted(out) == [0, 1] and all(len(t) == 3
+                                             for t in out.values())
     fam = PagedLM(CFG, device=CPU, params=params).bind(
         PagedKVCache.create(CFG, 2, 16, page=4, device=CPU))
     assert fam.spec_k == 1

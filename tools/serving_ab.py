@@ -10,12 +10,13 @@ card, in turns (parent, change, change, parent), each in its own process;
 the shapes, the timing and the runs come from this checkout's
 ``chip_smoke.py``.  It prints one JSON line: the card's name and power
 limit; the paged decode, prefill and verify kernels at ``chip_smoke.py``'s
-shapes (fp32 and int8 pools: event and profiler device time a call,
+shapes (fp32, int8 and bf16 pools: event and profiler device time a call,
 median of 25); the isolated prefill and decode throughput of
-``chip_smoke.py``'s throughput phase (full-width yi-6b, batch 8, fp32
-pools) with the step's wall and device time and the profiler's kernel
-count of one decode step and one prefill chunk; and the ``spec_k = 4``
-fp32 scheduler run's tokens/s.
+``chip_smoke.py``'s throughput phase (full-width yi-6b, batch 8) on fp32
+and on bf16 pools, with the step's wall and device time and the
+profiler's kernel count of one decode step and one prefill chunk; and the
+``spec_k = 4`` fp32 scheduler run's tokens/s.  ``--kv-dtypes`` narrows
+the pools (e.g. ``fp32,int8`` for a checkout that has no bf16 pools).
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--kv-dtypes", default="fp32,int8,bf16")
     args = ap.parse_args()
+    kv_dtypes = args.kv_dtypes.split(",")
     root = Path(args.root).resolve()
     sys.path[:0] = [str(root / "src"), str(HERE)]
     import numpy as np
@@ -58,9 +61,9 @@ def main() -> int:
     lens = [len(p) + cs.MAX_NEW // 2 for p in prompts]
     rng = np.random.default_rng(cs.SEED)
     kernels = {}
-    for quantized in (False, True):
+    for tag in [t for t in cs.POOL_TAGS if t in kv_dtypes]:
         h, kvh, d, kp, vp, ks, vs, table, lengths = cs.kernel_inputs(
-            rng, dev, quantized, lens)
+            rng, dev, tag, lens)
         sc = {} if ks is None else dict(k_scale=ks, v_scale=vs)
         q = torch.randn(cs.BATCH, h, d, device=dev)
         qp = torch.randn(cs.BATCH, cs.CHUNK, h, d, device=dev)
@@ -80,27 +83,26 @@ def main() -> int:
             "verify": lambda: ops.paged_verify(
                 qv, kp, vp, rows, lengths, vc, **sc),
         }
-        tag = "int8" if quantized else "fp32"
         for name, fn in calls.items():
             kernels[f"{name} {tag}"] = dict(ms=cs.time_ms(fn),
                                             device_ms=cs.profile_ms(fn))
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     params = serve_mod.PagedLM(cfg, generator=gen, kv_dtype="fp32",
                                device=dev).params
-    tp = cs.throughput(serve_mod, cfg, dev, params, prompts)
+    keys = ("prefill_tokens_per_s", "decode_tokens_per_s",
+            "decode_step_device_ms", "decode_step_wall_ms",
+            "decode_step_kernels", "decode_step_busy_ms",
+            "prefill_chunk_kernels", "prefill_chunk_busy_ms",
+            "launches_per_decode_step", "launches_per_prefill_step")
+    serving = {}
+    for kv_dtype in [t for t in ("fp32", "bf16") if t in kv_dtypes]:
+        tp = cs.throughput(serve_mod, cfg, dev, params, prompts, kv_dtype)
+        serving[kv_dtype] = {k: tp[k] for k in keys}
     out, sched, counts, secs = cs.serve_spec(serve_mod, cfg, dev, params,
                                              "fp32", prompts)
     print(json.dumps(dict(
         label=args.label or str(root), card=smi, kernels=kernels,
-        prefill_tokens_per_s=tp["prefill_tokens_per_s"],
-        decode_tokens_per_s=tp["decode_tokens_per_s"],
-        decode_step_device_ms=tp["decode_step_device_ms"],
-        decode_step_wall_ms=tp["decode_step_wall_ms"],
-        **{k: tp[k] for k in ("decode_step_kernels", "decode_step_busy_ms",
-                              "prefill_chunk_kernels",
-                              "prefill_chunk_busy_ms",
-                              "launches_per_decode_step",
-                              "launches_per_prefill_step")},
+        **serving["fp32"], bf16=serving.get("bf16"),
         spec_fp32_tokens_per_s=sched.stats.tokens / secs)))
     return 0
 
