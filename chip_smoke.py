@@ -175,6 +175,19 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
     (the flash kernel, one launch a layer) over 2 x (1100 + 32) tokens,
     so that the window of 1024 binds, within 2e-4, at float32 activations
     (the contract's tolerance is set for them).
+13. Dry run (``repro_torch.launch.dryrun``, host only, no kernel): all 64
+    (arch x shape x mesh) cells on the 16 x 16 and 2 x 16 x 16 production
+    meshes built on ``meta`` tensors, one line a cell with its argument
+    GiB a device (by group) and whether they fit this card's memory,
+    beside the card's name and power limit; the total seconds.  Then
+    world size 1: on a 1 x 1 host mesh, the dry run's parameter and
+    optimizer-state bytes of each training phase's config (yi-6b at 4
+    layers, olmoe-1b-7b at 6, hymba-1.5b and hubert-xlarge at full size)
+    must equal, leaf by leaf and in total, the ``nbytes`` of the trees
+    that phase allocated on the card (``torch.cuda.memory_allocated()``
+    printed beside); and olmoe-1b-7b's full-size serving weights, bf16 in
+    the dry run, beside the fp32 tree ``dense_generate`` held in phase 8,
+    with their factor.
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
@@ -397,6 +410,13 @@ HYMBA = "hymba-1.5b"
 HYMBA_BATCH, HYMBA_PROMPT, HYMBA_NEW = 8, 256, 32
 CONTRACT_BATCH, CONTRACT_PROMPT, CONTRACT_NEW = 2, 1100, 32
 CONTRACT_TOL = 2e-4
+#: What the training phases allocated: label → (config, leaf layouts and
+#: bytes of the parameter and optimizer trees, ``memory_allocated``),
+#: held against the dry run in phase 13.  ``SERVED`` the same for
+#: phase 8's fp32 serving weights.
+ALLOCATED = {}
+SERVED = {}
+DRYRUN_CELLS = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1926,6 +1946,24 @@ def tree_digest(leaves) -> str:
     return hashlib.sha256(json.dumps(sums).encode()).hexdigest()[:16]
 
 
+def tree_layout(tree):
+    """[(path, shape, dtype)] of a tree's leaves and their total bytes."""
+    from repro_torch.models.common import tree_paths
+
+    leaves = tree_paths(tree)
+    return ([(path, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+             for path, t in leaves], sum(t.nbytes for _, t in leaves))
+
+
+def record_allocated(label, cfg, params, opt_state):
+    """Keep a training phase's tree layouts for phase 13."""
+    p_leaves, p_bytes = tree_layout(params)
+    o_leaves, o_bytes = tree_layout(opt_state)
+    ALLOCATED[label] = dict(cfg=cfg, params=p_leaves, param_bytes=p_bytes,
+                            opt_state=o_leaves, opt_bytes=o_bytes,
+                            memory_allocated=torch.cuda.memory_allocated())
+
+
 def visible_keys(i, skv, causal, window):
     """How many keys query row i sees through the attention mask."""
     hi = min(skv, i + 1) if causal else skv
@@ -2292,6 +2330,8 @@ def run_training(dev):
                                   ckpt_every=TRAIN_CKPT_EVERY, keep=2)
         c1 = TrainController(step_fn, make_batch, ft)
         state = fresh()
+        record_allocated(f"yi-6b ({cfg.n_layers} layers)", cfg,
+                         state["params"], state["opt"])
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state = counted(ops, launches, lambda: c1.run(
@@ -2384,6 +2424,8 @@ def run_moe_serving(dev):
     cfg = get_config(MOE_ARCH)
     params = lm.init_model(cfg, seed=SEED, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
+    SERVED[MOE_ARCH] = dict(cfg=cfg, param_bytes=tree_layout(params)[1],
+                            memory_allocated=torch.cuda.memory_allocated())
     rng = np.random.default_rng(SEED)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
                                            (MOE_BATCH, MOE_PROMPT)),
@@ -2546,6 +2588,8 @@ def run_moe_training(dev):
             grad_clip=cfg.grad_clip))
         train_step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
         state = {"params": params, "opt": opt.init(params)}
+        record_allocated(f"{MOE_ARCH} ({cfg.n_layers} layers)", cfg,
+                         state["params"], state["opt"])
         history, step_s = [], []
 
         def one(step):
@@ -2703,6 +2747,7 @@ def run_family_training(arch, dev):
         train_step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
         p, o, metrics = opt.update(grads_a, opt.init(params), params, 0)
         state = {"params": p, "opt": o}
+        record_allocated(f"{arch} (full size)", cfg, p, o)
         history = [{"loss": float(loss_a),
                     **{k: float(v) for k, v in metrics.items()}}]
         del grads_a
@@ -2877,6 +2922,98 @@ def run_hymba_serving(dev):
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run
+# ---------------------------------------------------------------------------
+
+
+def run_dryrun(smi):
+    """Phase 13: every production cell on ``meta`` tensors against this
+    card's memory, then the world-size-1 check against what the training
+    phases allocated (``ALLOCATED``) and phase 8's serving weights
+    (``SERVED``).  Returns the phase's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_cell
+
+    card = dryrun.card_info()
+    mem = card["total_memory"]
+    gib = 2 ** 30
+    t0 = time.perf_counter()
+    rows = []
+    for multi_pod in (False, True):
+        for arch, shape in dryrun.all_cells():
+            rec = dryrun.run_cell(arch, shape, multi_pod, save=False,
+                                  flops=False, card=card)
+            rows.append(rec)
+            groups = ", ".join(f"{g} {b / gib:.3f}" for g, b in
+                               rec["memory"]["by_group"].items())
+            log(f"dryrun {arch:14s} {shape:12s} {rec['mesh']:10s} "
+                f"{rec['memory']['argument_gib']:8.3f} GiB a device of "
+                f"{mem / gib:.2f} GiB ({smi}): fits={rec['fits']} "
+                f"[{groups}]")
+    secs = time.perf_counter() - t0
+    require(len(rows) == DRYRUN_CELLS,
+            f"dryrun: {len(rows)} cells built, not {DRYRUN_CELLS}")
+    fits = sum(bool(r["fits"]) for r in rows)
+    log(f"dryrun: {len(rows)} cells in {secs:.2f} s; {fits} fit "
+        f"{mem / gib:.2f} GiB ({smi}); per-device FLOPs, temp bytes and "
+        f"collectives not measured (ROADMAP A9)")
+    out = dict(cells=len(rows), seconds=secs, fit=fits,
+               card_memory=mem, world_size_1={})
+
+    # World size 1: the dry run's bytes are what the phases allocated.
+    mesh = make_host_mesh(1, 1)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    require(len(ALLOCATED) == 4,
+            f"dryrun: the training phases recorded {sorted(ALLOCATED)}")
+    for label, got in ALLOCATED.items():
+        cell = build_cell(label, "train_4k", mesh, tp=1, device="meta",
+                          cfg=got["cfg"], shape=shape)
+        recs = dryrun.leaf_records(cell)
+        by = dryrun.argument_bytes(cell)
+        layout = {g: [(r["path"], r["shape"], r["dtype"]) for r in recs
+                      if r["group"] == g] for g in ("params", "opt_state")}
+        equal = (layout["params"] == got["params"]
+                 and layout["opt_state"] == got["opt_state"]
+                 and by["params"] == got["param_bytes"]
+                 and by["opt_state"] == got["opt_bytes"])
+        row = dict(dryrun_param_bytes=by["params"],
+                   dryrun_opt_bytes=by["opt_state"],
+                   allocated_param_bytes=got["param_bytes"],
+                   allocated_opt_bytes=got["opt_bytes"],
+                   memory_allocated=got["memory_allocated"],
+                   leaves=len(got["params"]) + len(got["opt_state"]),
+                   equal=equal)
+        out["world_size_1"][label] = row
+        log(f"dryrun world size 1, {label} ({smi}): params + optimizer "
+            f"state {by['params'] + by['opt_state']:,} B in the dry run, "
+            f"{got['param_bytes'] + got['opt_bytes']:,} B of trees "
+            f"allocated ({row['leaves']} leaves, equal leaf by leaf: "
+            f"{equal}); torch.cuda.memory_allocated() then "
+            f"{got['memory_allocated']:,} B")
+        require(equal, f"dryrun: {label}'s params + optimizer state "
+                f"differ from the trees the phase allocated: {row}")
+
+    # Serving weights: bf16 in the dry run, fp32 in dense_generate (A30).
+    for arch, got in SERVED.items():
+        cell = build_cell(arch, "decode_32k", mesh, tp=1, device="meta",
+                          cfg=got["cfg"])
+        dry = dryrun.argument_bytes(cell)["params"]
+        factor = got["param_bytes"] / dry
+        out["serving_" + arch] = dict(dryrun_bf16_param_bytes=dry,
+                                      dense_generate_fp32_bytes=got[
+                                          "param_bytes"], factor=factor)
+        log(f"dryrun {arch} serving weights ({smi}): {dry:,} B bf16 in the "
+            f"dry run, {got['param_bytes']:,} B fp32 held by "
+            f"dense_generate (memory_allocated {got['memory_allocated']:,} "
+            f"B): factor {factor:.4f} (ROADMAP A30)")
+    return out
 
 
 def main() -> int:
@@ -3102,6 +3239,12 @@ def main() -> int:
         f"; prefill + decode vs full forward max abs err "
         f"{summary['contract_max_err']:.3e}")
     phase_s[f"{HYMBA} serving"] = time.perf_counter() - t0
+
+    # -- phase 13: the dry run (host only) ------------------------------------
+    t0 = time.perf_counter()
+    summary = run_dryrun(smi)
+    log(f"dryrun ({smi}): " + json.dumps(summary))
+    phase_s["dryrun"] = time.perf_counter() - t0
     phase_s["total"] = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(phase_s))
     log(f"profiler: {len(PROFILER_MISSES)} device_ms values taken by CUDA "

@@ -3,8 +3,9 @@
 A copy of ``repro.configs``: the ten assigned configurations in the
 reference's registry order (so ``ALL_ARCH_NAMES`` is the reference's),
 the shape cells ``SHAPES`` (training takes ``train_4k``'s sequence
-length), :func:`smoke_config`, which reduces any of them to a CPU-test
-size exactly as the reference does.
+length) and the ones each arch runs (:func:`applicable_shapes`, the
+dry run's cells), :func:`smoke_config`, which reduces any of them to a
+CPU-test size exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -78,3 +79,15 @@ def smoke_config(name: str) -> ArchConfig:
     )
     return dataclasses.replace(c, **repl)
 
+
+
+def applicable_shapes(cfg: ArchConfig) -> List[ShapeConfig]:
+    """The shape cells this arch runs: training and prefill always; decode
+    for a causal model; ``long_500k`` for a causal model that is
+    sub-quadratic (a recurrent state or a sliding window)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"]]
+    if cfg.causal:  # an encoder-only model has no decode step
+        out.append(SHAPES["decode_32k"])
+        if cfg.ssm is not None or cfg.window is not None:
+            out.append(SHAPES["long_500k"])
+    return out

@@ -4,7 +4,8 @@ of ``repro.configs.arctic_480b``, field for field).
 35L d_model=7168 56H (GQA kv=8) d_ff=4864 per expert vocab=32000,
 Adafactor, bf16 parameters, chunked prefill of 4096.  The dense residual
 path runs beside the MoE FFN.  At full size it does not fit one card; the
-port runs it at its smoke size (the meta-device dry run is ROADMAP A9).
+port runs it at its smoke size, and the dry run
+(``repro_torch.launch.dryrun``) accounts for it at full size.
 """
 from .base import ArchConfig
 

@@ -4,8 +4,8 @@
 62L d_model=5376 32H (GQA kv=16) head_dim=128 d_ff=21504 vocab=262144,
 GELU, tied embeddings.  Every 6th layer is global; locals use a
 1024-token window with RoPE theta 10k, globals theta 1M.  The TP padding
-and FSDP fields are the reference's multi-device deployment, which the
-one-card port does not read (ROADMAP A9).
+and FSDP fields are the reference's multi-device deployment: the dry
+run reads them, one card's training and serving do not.
 """
 from .base import ArchConfig
 

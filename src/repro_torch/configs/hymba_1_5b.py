@@ -6,8 +6,8 @@ ssm_state=16.  Each block runs sliding-window attention (1024) beside a
 selective SSM head, each path output-normed, then averaged; layers
 {0, L/2, L-1} attend globally (``models.lm.global_flags``).  Meta-tokens
 are out of scope, as in the reference.  The TP padding fields are the
-reference's multi-device deployment, which the one-card port does not
-read (ROADMAP A9).
+reference's multi-device deployment: the dry run reads them,
+one card's training and serving do not.
 """
 from .base import ArchConfig
 

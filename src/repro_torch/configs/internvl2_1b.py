@@ -4,8 +4,8 @@
 24L d_model=896 14H (GQA kv=2) d_ff=4864 vocab=151655, QKV bias, tied
 embeddings.  Batches carry 256 precomputed patch embeddings of 1024
 (B, 256, 1024), projected into the LM and placed before the tokens.  The
-TP padding fields are the reference's multi-device deployment, which the
-one-card port does not read (ROADMAP A9).
+TP padding fields are the reference's multi-device deployment: the dry
+run reads them, one card's training and serving do not.
 """
 from .base import ArchConfig
 

@@ -4,8 +4,8 @@
 64L d_model=5120 40H kv=40 d_ff=27392 vocab=152064.  Decode keeps an int8
 KV cache, and ``serve_mlp_int8`` marks the model for w8a16 MLP weights at
 serving time (``models.lm.quantize_mlp_weights``).  The TP padding and
-FSDP fields are the reference's multi-device deployment, which the
-one-card port does not read (ROADMAP A9).
+FSDP fields are the reference's multi-device deployment: the dry
+run reads them, one card's training and serving do not.
 """
 from .base import ArchConfig
 

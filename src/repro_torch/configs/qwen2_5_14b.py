@@ -2,8 +2,8 @@
 ``repro.configs.qwen2_5_14b``, field for field).
 
 48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064.  The TP padding
-and FSDP fields are the reference's multi-device deployment, which the
-one-card port does not read (ROADMAP A9).
+and FSDP fields are the reference's multi-device deployment: the dry
+run reads them, one card's training and serving do not.
 """
 from .base import ArchConfig
 

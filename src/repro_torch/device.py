@@ -30,6 +30,8 @@ def set_fp32_numerics() -> None:
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` means ``cuda``; a CUDA device without a card raises.
+    ``'meta'`` (tensors with shapes and dtypes but no storage, as the dry
+    run builds them) is taken only when named.
 
     ``'cuda'`` resolves to the indexed current card (``cuda:0``), the
     device a tensor created on it reports, so devices compare equal.
@@ -38,8 +40,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     entry point that resolves a device computes like the reference.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         f"(or 'meta' for shapes alone)")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -46,15 +46,18 @@ def attention_defs(cfg: ArchConfig, q_heads: int,
                    kv_heads: int) -> Dict[str, Param]:
     d, hd = cfg.d_model, cfg.hd
     defs = {
-        "wq": Param((d, q_heads, hd)),
-        "wk": Param((d, kv_heads, hd)),
-        "wv": Param((d, kv_heads, hd)),
-        "wo": Param((q_heads, hd, d)),
+        "wq": Param((d, q_heads, hd), ("fsdp", "heads", "head_dim")),
+        "wk": Param((d, kv_heads, hd), ("fsdp", "kv_heads_w", "head_dim")),
+        "wv": Param((d, kv_heads, hd), ("fsdp", "kv_heads_w", "head_dim")),
+        "wo": Param((q_heads, hd, d), ("heads", "head_dim", "fsdp")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = Param((q_heads, hd), init="zeros")
-        defs["bk"] = Param((kv_heads, hd), init="zeros")
-        defs["bv"] = Param((kv_heads, hd), init="zeros")
+        defs["bq"] = Param((q_heads, hd), ("heads", "head_dim"),
+                           init="zeros")
+        defs["bk"] = Param((kv_heads, hd), ("kv_heads_w", "head_dim"),
+                           init="zeros")
+        defs["bv"] = Param((kv_heads, hd), ("kv_heads_w", "head_dim"),
+                           init="zeros")
     return defs
 
 
@@ -133,8 +136,8 @@ def init_kv_cache(cfg: ArchConfig, kv_heads: int, batch: int, max_len: int,
 
 
 def cache_dims(cfg: ArchConfig) -> Dict[str, tuple]:
-    """The reference's logical dims of each cache leaf (for sharding,
-    ROADMAP A9)."""
+    """The reference's logical dims of each cache leaf (for sharding
+    specs)."""
     dims4 = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
     dims3 = ("cache_batch", "cache_seq", "kv_heads")
     if cfg.cache_dtype == "int8":

@@ -4,10 +4,11 @@ Parameter declarations and their initialization, :func:`rms_norm`,
 ``ACTIVATIONS``, RoPE (:func:`rope_freqs`, :func:`apply_rope`), the
 decayed recurrence of the recurrent blocks (:func:`decayed_cumsum`, one
 step at a time, and :func:`decayed_scan`, a chunk at once in log-depth)
-and the training loss's :func:`chunked_softmax_xent`.  The reference's logical
-dimension names exist for sharding, which the port leaves out, so a
-:class:`Param` here is a shape, an initializer and a scale.  Parameter
-trees are nested ``dict``s of tensors.
+and the training loss's :func:`chunked_softmax_xent`.  A :class:`Param`
+is the reference's declaration: a shape, the logical name of each
+dimension (which :mod:`repro_torch.parallel.sharding` maps to mesh
+axes), an initializer and a scale.  Parameter trees are nested ``dict``s
+of tensors.
 """
 from __future__ import annotations
 
@@ -42,11 +43,17 @@ Tree = Any
 
 @dataclasses.dataclass(frozen=True)
 class Param:
-    """A parameter declaration: shape and initializer."""
+    """A parameter declaration: shape, logical dim names, initializer."""
 
     shape: Tuple[int, ...]
+    dims: Tuple[Optional[str], ...]
     init: str = "normal"           # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default: fan-in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.dims):
+            raise ValueError(f"shape {self.shape} and dims {self.dims} "
+                             f"differ in length")
 
     def std(self) -> float:
         """The reference's stddev for a ``normal``/``embed`` leaf, computed
@@ -98,9 +105,10 @@ def tree_unflatten(like: Tree, leaves) -> Tree:
 
 
 def stack_layer_defs(defs: Tree, n_layers: int) -> Tree:
-    """Prepend a layers dimension to every :class:`Param`."""
+    """Prepend a ``'layers'`` dimension to every :class:`Param`."""
     return map_tree(
-        lambda p: Param((n_layers,) + p.shape, p.init, p.scale), defs)
+        lambda p: Param((n_layers,) + p.shape, ("layers",) + p.dims, p.init,
+                        p.scale), defs)
 
 
 def init_params(defs: Tree, generator: torch.Generator,

@@ -3,7 +3,8 @@
 Parameter declarations (``layer_defs``, ``model_defs``), their seeded
 initialization on the card (:func:`init_model`), the reference's own
 weights carried over leaf for leaf (:func:`lm_params_from_numpy`), w8a16
-MLP weights (:func:`quantize_mlp_weights`), the training loss
+MLP weights (:func:`quantize_mlp_weights`, and their shapes alone,
+:func:`quantize_mlp_structs`), the training loss
 (:func:`train_loss`, with the MoE load-balance loss summed over layers)
 with its embedding, audio/vision front ends and output head, and the
 dense inference path over a contiguous cache (:func:`init_cache`,
@@ -61,6 +62,7 @@ __all__ = [
     "output_weight",
     "prefill",
     "prefill_chunked",
+    "quantize_mlp_structs",
     "quantize_mlp_weights",
     "train_loss",
 ]
@@ -73,8 +75,8 @@ __all__ = [
 
 def layer_defs(cfg: ArchConfig, q_heads: int, kv_heads: int) -> Dict[str, Any]:
     d = cfg.d_model
-    norms = {"ln1": Param((d,), init="zeros"),
-             "ln2": Param((d,), init="zeros")}
+    norms = {"ln1": Param((d,), ("d_model",), init="zeros"),
+             "ln2": Param((d,), ("d_model",), init="zeros")}
     if cfg.ssm == "rwkv6":
         return {**rwkv_mod.rwkv_defs(cfg, q_heads), **norms}
     if cfg.ssm == "hymba":
@@ -92,19 +94,21 @@ def layer_defs(cfg: ArchConfig, q_heads: int, kv_heads: int) -> Dict[str, Any]:
 def model_defs(cfg: ArchConfig, tp: int = 1) -> Dict[str, Any]:
     q_heads, kv_heads = cfg.heads_for_tp(tp)
     if cfg.ssm == "rwkv6":
-        q_heads = rwkv_mod.rwkv_heads(cfg)
+        q_heads = rwkv_mod.rwkv_heads(cfg, padded=tp > 1)
     vp = cfg.vocab_padded(tp)
     defs: Dict[str, Any] = {
         "layers": stack_layer_defs(layer_defs(cfg, q_heads, kv_heads),
                                    cfg.n_layers),
-        "final_norm": Param((cfg.d_model,), init="zeros"),
+        "final_norm": Param((cfg.d_model,), ("d_model",), init="zeros"),
     }
     if cfg.modality != "audio":
-        defs["embed"] = Param((vp, cfg.d_model), init="embed")
+        defs["embed"] = Param((vp, cfg.d_model), ("vocab", "d_model"),
+                              init="embed")
     if cfg.modality in ("audio", "vlm"):
-        defs["frontend_proj"] = Param((cfg.frontend_dim, cfg.d_model))
+        defs["frontend_proj"] = Param((cfg.frontend_dim, cfg.d_model),
+                                      ("frontend", "d_model"))
     if not cfg.tie_embeddings:
-        defs["head"] = Param((cfg.d_model, vp))
+        defs["head"] = Param((cfg.d_model, vp), ("d_model", "vocab"))
     return defs
 
 
@@ -172,6 +176,36 @@ def quantize_mlp_weights(params, cfg: ArchConfig):
         return out
 
     return walk(params)
+
+
+def quantize_mlp_structs(tensors, specs):
+    """The (tensor tree, spec tree) of :func:`quantize_mlp_weights`'s
+    output, without the arithmetic (the dry run's ``meta`` trees): each MLP
+    weight becomes int8 codes of its shape, sharded as the weight, and
+    float32 scales with the contracted dim (-2) collapsed to 1 and its
+    mesh axis dropped."""
+    def walk(t, sp, in_mlp=False):
+        if not isinstance(t, dict):
+            return t, sp
+        out_t, out_sp = {}, {}
+        for k in t:
+            if in_mlp and k in MLP_WEIGHT_NAMES and torch.is_tensor(t[k]):
+                w = t[k]
+                sshape = w.shape[:-2] + (1,) + w.shape[-1:]
+                sspec = list(sp[k]) + [None] * (w.dim() - len(sp[k]))
+                sspec[w.dim() - 2] = None
+                out_t[k] = {
+                    "q": torch.empty(w.shape, dtype=torch.int8,
+                                     device=w.device),
+                    "scale": torch.empty(sshape, dtype=torch.float32,
+                                         device=w.device)}
+                out_sp[k] = {"q": sp[k], "scale": tuple(sspec)}
+            else:
+                out_t[k], out_sp[k] = walk(
+                    t[k], sp[k], in_mlp or k in ("mlp", "moe", "dense"))
+        return out_t, out_sp
+
+    return walk(tensors, specs)
 
 
 def global_flags(cfg: ArchConfig) -> np.ndarray:
@@ -321,16 +355,19 @@ def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda"
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device=None) -> Dict[str, Any]:
+               device=None, tp: int = 1) -> Dict[str, Any]:
     """The layers' caches stacked on a leading layers axis, zeros on
-    ``device`` (``None``: the GPU): the KV cache ``(L, B, max_len, KVH,
-    hd)`` (int8 codes and ``(L, B, max_len, KVH)`` scales for an int8
-    cache); rwkv6's state ``{'s', 'x_tm', 'x_cm'}``; hymba's ``{'kv':
-    <the KV cache>, 'ssm': {'h', 'conv'}}``."""
+    ``device`` (``None``: the GPU; ``'meta'`` for shapes alone, as the
+    dry run builds them): the KV cache ``(L, B, max_len, KVH, hd)`` (int8
+    codes and ``(L, B, max_len, KVH)`` scales for an int8 cache); rwkv6's
+    state ``{'s', 'x_tm', 'x_cm'}``; hymba's ``{'kv': <the KV cache>,
+    'ssm': {'h', 'conv'}}``.  ``tp`` > 1 pads the heads as
+    :func:`model_defs` does."""
     dev = resolve_device(device)
-    _, kv_heads = cfg.heads_for_tp(1)
+    _, kv_heads = cfg.heads_for_tp(tp)
     if cfg.ssm == "rwkv6":
-        one = rwkv_mod.init_rwkv_state(cfg, batch, dev)
+        one = rwkv_mod.init_rwkv_state(
+            cfg, batch, dev, rwkv_mod.rwkv_heads(cfg, padded=tp > 1))
     elif cfg.ssm == "hymba":
         one = {"kv": attn_mod.init_kv_cache(cfg, kv_heads, batch, max_len,
                                             dev),
@@ -343,8 +380,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def cache_dims_tree(cfg: ArchConfig):
-    """The reference's logical dims of every cache leaf, layers first (for
-    sharding, which comes with the mesh: ROADMAP A9)."""
+    """The reference's logical dims of every cache leaf, layers first (the
+    dry run's cache specs)."""
     if cfg.ssm == "rwkv6":
         dims = rwkv_mod.rwkv_state_dims(cfg)
     elif cfg.ssm == "hymba":

@@ -73,15 +73,15 @@ def mamba_defs(cfg: ArchConfig) -> Dict[str, Param]:
     di, r, n = mamba_dims(cfg)
     k = cfg.ssm_conv
     return {
-        "w_in": Param((d, 2 * di)),
-        "conv_w": Param((k, di), scale=0.1),
-        "conv_b": Param((di,), init="zeros"),
-        "w_x": Param((di, r + 2 * n)),
-        "w_dt": Param((r, di)),
-        "b_dt": Param((di,), init="zeros"),
-        "a_log": Param((di, n), init="ones"),
-        "d_skip": Param((di,), init="ones"),
-        "w_out": Param((di, d)),
+        "w_in": Param((d, 2 * di), ("fsdp", "d_ff")),
+        "conv_w": Param((k, di), (None, "d_ff"), scale=0.1),
+        "conv_b": Param((di,), ("d_ff",), init="zeros"),
+        "w_x": Param((di, r + 2 * n), ("d_ff", None)),
+        "w_dt": Param((r, di), (None, "d_ff")),
+        "b_dt": Param((di,), ("d_ff",), init="zeros"),
+        "a_log": Param((di, n), ("d_ff", "ssm_state"), init="ones"),
+        "d_skip": Param((di,), ("d_ff",), init="ones"),
+        "w_out": Param((di, d), ("d_ff", "fsdp")),
     }
 
 
@@ -312,8 +312,8 @@ def init_mamba_state(cfg: ArchConfig, batch: int,
 
 
 def mamba_state_dims(cfg: ArchConfig) -> Dict[str, tuple]:
-    """The reference's logical dims of each state leaf (for sharding,
-    ROADMAP A9)."""
+    """The reference's logical dims of each state leaf (for sharding
+    specs)."""
     return {
         "h": ("cache_batch", "d_ff", "ssm_state"),
         "conv": ("cache_batch", None, "d_ff"),
@@ -331,8 +331,8 @@ def hymba_defs(cfg: ArchConfig, q_heads: int, kv_heads: int
     return {
         "attn": attention_defs(cfg, q_heads, kv_heads),
         "mamba": mamba_defs(cfg),
-        "norm_attn": Param((d,), init="zeros"),
-        "norm_mamba": Param((d,), init="zeros"),
+        "norm_attn": Param((d,), ("d_model",), init="zeros"),
+        "norm_mamba": Param((d,), ("d_model",), init="zeros"),
     }
 
 

@@ -33,9 +33,10 @@ MLP_WEIGHT_NAMES = ("w_up", "w_gate", "w_down")
 
 def mlp_defs(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, Param]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    defs = {"w_up": Param((d, f)), "w_down": Param((f, d))}
+    defs = {"w_up": Param((d, f), ("fsdp_mlp", "d_ff")),
+            "w_down": Param((f, d), ("d_ff", "fsdp_mlp"))}
     if cfg.glu:
-        defs["w_gate"] = Param((d, f))
+        defs["w_gate"] = Param((d, f), ("fsdp_mlp", "d_ff"))
     return defs
 
 
@@ -63,12 +64,12 @@ def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def moe_defs(cfg: ArchConfig) -> Dict[str, object]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     defs: Dict[str, object] = {
-        "router": Param((d, e), scale=0.02),
-        "w_up": Param((e, d, f)),
-        "w_down": Param((e, f, d)),
+        "router": Param((d, e), ("d_model", None), scale=0.02),
+        "w_up": Param((e, d, f), ("experts", "fsdp_mlp", None)),
+        "w_down": Param((e, f, d), ("experts", None, "fsdp_mlp")),
     }
     if cfg.glu:
-        defs["w_gate"] = Param((e, d, f))
+        defs["w_gate"] = Param((e, d, f), ("experts", "fsdp_mlp", None))
     if cfg.dense_residual:
         defs["dense"] = mlp_defs(cfg)
     return defs

@@ -56,7 +56,11 @@ MIX_NAMES = ("r", "w", "k", "v", "g")
 CHUNK = 32
 
 
-def rwkv_heads(cfg: ArchConfig) -> int:
+def rwkv_heads(cfg: ArchConfig, padded: bool = False) -> int:
+    """WKV heads: d_model / 64, or ``cfg.tp_pad_heads`` when ``padded``
+    (tensor-parallel layouts pad the heads to divide the model axis)."""
+    if padded and cfg.tp_pad_heads:
+        return cfg.tp_pad_heads
     return cfg.d_model // HEAD_DIM
 
 
@@ -64,34 +68,39 @@ def rwkv_defs(cfg: ArchConfig, heads: Optional[int] = None) -> Dict[str, Any]:
     d, f = cfg.d_model, cfg.d_ff
     h = heads or rwkv_heads(cfg)
     tm = {
-        "mu_x": Param((d,), init="zeros"),
-        "mu": Param((5, d), init="zeros"),
-        "lora_a": Param((5, d, LORA_R), scale=0.01),
-        "lora_b": Param((5, LORA_R, d), scale=0.01),
-        "w_base": Param((h, HEAD_DIM), init="zeros"),
-        "wa": Param((d, LORA_R * 2), scale=0.01),
-        "wb": Param((LORA_R * 2, h, HEAD_DIM), scale=0.01),
-        "u": Param((h, HEAD_DIM), init="zeros"),
-        "wr": Param((d, h, HEAD_DIM)),
-        "wk": Param((d, h, HEAD_DIM)),
-        "wv": Param((d, h, HEAD_DIM)),
-        "wg": Param((d, h, HEAD_DIM)),
-        "wo": Param((h, HEAD_DIM, d)),
-        "ln_g": Param((h, HEAD_DIM), init="zeros"),
+        "mu_x": Param((d,), ("d_model",), init="zeros"),
+        "mu": Param((5, d), (None, "d_model"), init="zeros"),
+        "lora_a": Param((5, d, LORA_R), (None, "d_model", None),
+                        scale=0.01),
+        "lora_b": Param((5, LORA_R, d), (None, None, "d_model"),
+                        scale=0.01),
+        "w_base": Param((h, HEAD_DIM), ("heads", "head_dim"), init="zeros"),
+        "wa": Param((d, LORA_R * 2), ("d_model", None), scale=0.01),
+        "wb": Param((LORA_R * 2, h, HEAD_DIM), (None, "heads", "head_dim"),
+                    scale=0.01),
+        "u": Param((h, HEAD_DIM), ("heads", "head_dim"), init="zeros"),
+        "wr": Param((d, h, HEAD_DIM), ("fsdp", "heads", "head_dim")),
+        "wk": Param((d, h, HEAD_DIM), ("fsdp", "heads", "head_dim")),
+        "wv": Param((d, h, HEAD_DIM), ("fsdp", "heads", "head_dim")),
+        "wg": Param((d, h, HEAD_DIM), ("fsdp", "heads", "head_dim")),
+        "wo": Param((h, HEAD_DIM, d), ("heads", "head_dim", "fsdp")),
+        "ln_g": Param((h, HEAD_DIM), ("heads", "head_dim"), init="zeros"),
     }
     cm = {
-        "mu_k": Param((d,), init="zeros"),
-        "mu_r": Param((d,), init="zeros"),
-        "wk": Param((d, f)),
-        "wv": Param((f, d)),
-        "wr": Param((d, d)),
+        "mu_k": Param((d,), ("d_model",), init="zeros"),
+        "mu_r": Param((d,), ("d_model",), init="zeros"),
+        "wk": Param((d, f), ("fsdp", "d_ff")),
+        "wv": Param((f, d), ("d_ff", "fsdp")),
+        # the receptance gate's output dim shards over the model axis
+        "wr": Param((d, d), ("fsdp", "heads")),
     }
     return {"tm": tm, "cm": cm}
 
 
-def rwkv_state_specs(cfg: ArchConfig) -> Dict[str, Tuple[tuple, torch.dtype]]:
+def rwkv_state_specs(cfg: ArchConfig, heads: Optional[int] = None
+                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """State name → (per-sequence per-layer row shape, dtype)."""
-    d, h = cfg.d_model, rwkv_heads(cfg)
+    d, h = cfg.d_model, heads or rwkv_heads(cfg)
     return {
         "s": ((h, HEAD_DIM, HEAD_DIM), torch.float32),
         "x_tm": ((d,), cfg.compute_dtype),
@@ -228,17 +237,17 @@ def rwkv_block(p, x: torch.Tensor, cfg: ArchConfig, norms,
     return x, {**st_tm, **st_cm}
 
 
-def init_rwkv_state(cfg: ArchConfig, batch: int,
-                    device: torch.device) -> Dict[str, torch.Tensor]:
+def init_rwkv_state(cfg: ArchConfig, batch: int, device: torch.device,
+                    heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """A zero state: ``s`` (B, H, hd, hd) float32, ``x_tm`` and ``x_cm``
-    (B, D) in the compute dtype."""
+    (B, D) in the compute dtype; H is ``heads`` or d_model / 64."""
     return {name: torch.zeros((batch,) + shape, dtype=dtype, device=device)
-            for name, (shape, dtype) in rwkv_state_specs(cfg).items()}
+            for name, (shape, dtype) in rwkv_state_specs(cfg, heads).items()}
 
 
 def rwkv_state_dims(cfg: ArchConfig) -> Dict[str, tuple]:
-    """The reference's logical dims of each state leaf (for sharding,
-    ROADMAP A9)."""
+    """The reference's logical dims of each state leaf (for sharding
+    specs)."""
     return {
         "s": ("cache_batch", "heads", None, None),
         "x_tm": ("cache_batch", None),

@@ -181,7 +181,7 @@ class RecurrentLM:
         self.impl = impl
         self.device = resolve_device(device)
         d = cfg.d_model
-        norm = Param((d,), init="zeros")
+        norm = Param((d,), ("d_model",), init="zeros")
         if arch == "rwkv6":
             ldefs: Dict[str, Any] = {
                 **rwkv_mod.rwkv_defs(cfg), "ln1": norm, "ln2": norm,

@@ -61,6 +61,8 @@ def test_port_files_are_scanned():
             "models/lm.py", "optim/optimizers.py", "train/train_step.py",
             "data/pipeline.py", "checkpoint/manager.py",
             "runtime/fault_tolerance.py", "launch/train.py",
+            "launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+            "parallel/__init__.py", "parallel/sharding.py",
             "chip_smoke.py"} <= names
 
 
@@ -73,7 +75,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.workloads.__main__, repro_torch.models.lm, "
             "repro_torch.optim, repro_torch.train, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.runtime, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun, "
+            "repro_torch.parallel, repro_torch.parallel.sharding; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')); "
             "print(bad); sys.exit(1 if bad else 0)")
