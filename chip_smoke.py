@@ -188,6 +188,26 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
     printed beside); and olmoe-1b-7b's full-size serving weights, bf16 in
     the dry run, beside the fp32 tree ``dense_generate`` held in phase 8,
     with their factor.
+14. Mesh-parallel (ROADMAP A9b), world size 1: a ``torch.distributed``
+    group on ``nccl`` from a file store (a failure to init fails the
+    run) and the ``data`` mesh bound to it.  ``optim.compression.
+    int8_psum`` over 1,216,385,024 float32 values (the 4-layer yi-6b
+    tree), timed; on a slice of 2**24 values its int8 codes, scales, sums
+    and residuals bitwise against the same call on CPU copies over a gloo
+    group.  ``make_compressed_train_step`` on phase 7's params, batches
+    and AdamW for 3 steps (4 x 4096 in 2 microbatches, the flash
+    kernels): step 0's loss bitwise phase 7's first, the next within 1e-2
+    relative of phase 7's, a nonzero residual; step time, peak memory and
+    flash launches a step.  Expert-parallel MoE at olmoe-1b-7b full width
+    (one layer, fp32, tokens 8 x 256): 8 expert shards computed in turn
+    (``mlp._ep_shard``, dispatch and combine on the converter kernels)
+    and summed in shard order, against ``moe_fwd``: output and
+    gradients within 1e-4, aux bitwise, each shard bitwise against the
+    plain dispatch and combine, 16 scatters and 16 gathers, at capacity
+    factor 8.0 and at the config's 1.25 (the shards' kept masks making up
+    the portable path's).  The vocab-sharded embedding at yi-6b's 64,000
+    x 4,096 table over 16 shards in turn on 4 x 4,096 ids: forward
+    bitwise ``table[ids]``, gradient bitwise the unsharded gather's.
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
@@ -417,6 +437,21 @@ CONTRACT_TOL = 2e-4
 ALLOCATED = {}
 SERVED = {}
 DRYRUN_CELLS = 64
+
+# The mesh-parallel phase (world size 1, an nccl group from a file store):
+# int8_psum over the 4-layer yi-6b tree's length, held bitwise against the
+# same call on CPU copies of a slice; the compressed data-parallel step on
+# the training phase's params and batches; expert-parallel MoE at
+# olmoe-1b-7b full width (one layer, fp32, tokens 8 x 256, 8 expert shards
+# in turn, capacity factor 8.0 so nothing drops, then the config's own);
+# the vocab-sharded embedding at yi-6b's 64,000 x 4,096 table over 16
+# shards in turn.
+MESH_SLICE = 1 << 24
+MESH_TIMED = 3
+COMPRESSED_STEPS = 3
+COMPRESSED_RTOL = 1e-2
+EP_SHARDS, EP_BATCH, EP_SEQ, EP_CF, EP_TOL = 8, 8, 256, 8.0, 1e-4
+EMB_SHARDS = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -2228,6 +2263,35 @@ def counted(ops, launches, fn):
         counted.last = ops.launch_counts()
 
 
+def training_optimizer(cfg):
+    """The training phase's AdamW (no warmup, decayed over its steps)."""
+    from repro_torch.optim import OptimizerConfig, make_optimizer
+
+    return make_optimizer(OptimizerConfig(
+        name=cfg.optimizer, lr=cfg.learning_rate, warmup_steps=0,
+        total_steps=TRAIN_STEPS, weight_decay=cfg.weight_decay,
+        grad_clip=cfg.grad_clip))
+
+
+def training_batches(cfg, dev, tmp):
+    """The training phase's batches: ``make_batch(step)`` over a synthetic
+    corpus written into ``tmp`` from the seed."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.data import TokenDataset, synthetic_corpus
+
+    seq = SHAPES["train_4k"].seq_len
+    corpus = os.path.join(tmp, "corpus")
+    synthetic_corpus(corpus, n_tokens=(TRAIN_STEPS * TRAIN_BATCH + 1)
+                     * (seq + 1), vocab=cfg.vocab, seed=SEED)
+    ds = TokenDataset(corpus, seq, TRAIN_BATCH)
+
+    def make_batch(step):
+        return {key: torch.as_tensor(val).to(dev)
+                for key, val in ds.batch(step).items()}
+
+    return make_batch
+
+
 def run_training(dev):
     """Phase 7: yi-6b at full width, 4 layers, through the port's training
     path (``make_train_step`` under ``TrainController``).  Returns (the
@@ -2237,11 +2301,10 @@ def run_training(dev):
     import tempfile
 
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.data import TokenDataset, synthetic_corpus
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.models.common import tree_leaves, tree_paths
-    from repro_torch.optim import OptimizerConfig, global_norm, make_optimizer
+    from repro_torch.optim import global_norm
     from repro_torch.runtime import FaultToleranceConfig, TrainController
     from repro_torch.train import (grads_with_accum, make_loss_fn,
                                    make_train_step)
@@ -2257,19 +2320,9 @@ def run_training(dev):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        corpus = os.path.join(tmp, "corpus")
-        synthetic_corpus(corpus, n_tokens=(TRAIN_STEPS * TRAIN_BATCH + 1)
-                         * (seq + 1), vocab=cfg.vocab, seed=SEED)
-        ds = TokenDataset(corpus, seq, TRAIN_BATCH)
+        make_batch = training_batches(cfg, dev, tmp)
 
-        def make_batch(step):
-            return {key: torch.as_tensor(val).to(dev)
-                    for key, val in ds.batch(step).items()}
-
-        opt = make_optimizer(OptimizerConfig(
-            name=cfg.optimizer, lr=cfg.learning_rate, warmup_steps=0,
-            total_steps=TRAIN_STEPS, weight_decay=cfg.weight_decay,
-            grad_clip=cfg.grad_clip))
+        opt = training_optimizer(cfg)
         train_step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM)
 
         def step_fn(state, batch, step):
@@ -3016,6 +3069,311 @@ def run_dryrun(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the mesh-parallel paths at world size 1
+# ---------------------------------------------------------------------------
+
+
+def check_int8_psum(dev, group, n):
+    """``int8_psum`` of n float32 values (the 4-layer yi-6b tree's length)
+    on the card, timed; a slice of ``MESH_SLICE`` values from the middle,
+    its codes, scales, sums and residuals bitwise against the same call
+    on CPU copies over a gloo group."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compression
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(n, generator=gen, device=dev)
+    err = torch.randn(n, generator=gen, device=dev).mul_(0.01)
+    times = []
+    for _ in range(MESH_TIMED):
+        times.append(sync_ms(lambda: compression.int8_psum(x, group, err)))
+    got, new_err = compression.int8_psum(x, group, err)
+    lo = (n // 2) // compression.CHUNK * compression.CHUNK
+    sl = slice(lo, lo + MESH_SLICE)
+    q, sc = compression._quantize((x[sl] + err[sl])[None])
+    cpu_group = dist.new_group([0], backend="gloo")
+    want, want_err = compression.int8_psum(x[sl].cpu(), cpu_group,
+                                           err[sl].cpu())
+    wq, wsc = compression._quantize((x[sl].cpu() + err[sl].cpu())[None])
+    n_pad = -(-n // compression.CHUNK) * compression.CHUNK
+    out = dict(n=n, ms=times, ms_median=statistics.median(times),
+               slice=[lo, lo + MESH_SLICE],
+               codes_equal=torch.equal(q.cpu(), wq),
+               scales_equal=torch.equal(sc.cpu(), wsc),
+               sums_equal=torch.equal(got[sl].cpu(), want),
+               residuals_equal=torch.equal(new_err[sl].cpu(), want_err),
+               # each collective's buffers a device hands over and takes
+               # back: the codes and fp32 scales of N (all_to_all) and of
+               # its N / world shard (all_gather); at world size 1 the
+               # collectives copy within the card
+               all_to_all_int8_bytes=n_pad,
+               all_to_all_scale_bytes=4 * n_pad // compression.CHUNK,
+               all_gather_int8_bytes=n_pad,
+               all_gather_scale_bytes=4 * n_pad // compression.CHUNK,
+               max_abs_sum_err=float((got - x - err).abs().max()))
+    for key in ("codes_equal", "scales_equal", "sums_equal",
+                "residuals_equal"):
+        require(out[key], f"mesh: int8_psum's {key[:-6]} on the card differ "
+                f"from the CPU's on slice {out['slice']}")
+    return out
+
+
+def run_compressed_step(dev, mesh, training):
+    """The compressed data-parallel step on the training phase's yi-6b (4
+    layers), params, batches and optimizer: step 0's loss bitwise that
+    phase's, later ones within ``COMPRESSED_RTOL``, a nonzero residual."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train import make_compressed_train_step
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    launches = {k: 0 for k in ops.launch_counts()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        make_batch = training_batches(cfg, dev, tmp)
+        opt = training_optimizer(cfg)
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        state = opt.init(params)
+        step = make_compressed_train_step(cfg, opt, mesh, dp_axes=("data",),
+                                          grad_accum=TRAIN_ACCUM)
+        err = step.init_err_fb(params)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for i in range(COMPRESSED_STEPS):
+            batch = make_batch(i)
+            t0 = time.perf_counter()
+            params, state, err, metrics = counted(
+                ops, launches, lambda: step(params, state, batch, i, err))
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            log(f"compressed step {i}: loss {losses[-1]!r} "
+                f"({step_s[-1] * 1e3:.0f} ms)")
+        want = training["losses"][:COMPRESSED_STEPS]
+        out = dict(losses=losses, training_losses=want, step_s=step_s,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   residual_abs_max=float(err.abs().max()),
+                   residual_numel=err.numel(),
+                   launches_per_step={key: launches[key] / COMPRESSED_STEPS
+                                      for key in FLASH_KERNELS})
+        require(losses[0] == want[0], f"mesh: compressed step 0's loss "
+                f"{losses[0]!r} is not the training phase's {want[0]!r}")
+        for got, ref_loss in zip(losses[1:], want[1:]):
+            require(abs(got - ref_loss) <= COMPRESSED_RTOL * abs(ref_loss),
+                    f"mesh: compressed losses {losses} vs {want} over "
+                    f"{COMPRESSED_RTOL} relative")
+        require(out["residual_abs_max"] > 0, "mesh: the residual is zero")
+        require(launches["flash_attention_fwd"] > 0
+                and launches["flash_attention_bwd"] > 0,
+                f"mesh: the compressed step launched no flash kernel: "
+                f"{launches}")
+        del params, state, err, step
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_ep_moe(dev):
+    """Expert-parallel MoE at olmoe-1b-7b full width on one card: the
+    ``EP_SHARDS`` shards of one layer computed in turn
+    (``mlp._ep_shard``) and their partials summed in shard order, against
+    ``moe_fwd``'s portable path: outputs and gradients within ``EP_TOL``,
+    ``aux`` bitwise, and each shard's partial and kept mask bitwise
+    against the same shard on the plain dispatch and combine.  At
+    capacity factor 8.0 (nothing drops) and at the config's own 1.25,
+    where the tokens' shared mean makes capacity bind and the kept masks
+    of the shards must make up the portable path's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import mlp
+    from repro_torch.models.common import init_params
+
+    base = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    launches = {k: 0 for k in ops.launch_counts()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(mlp.moe_defs(base), gen, dev)
+    # A mean shared by all tokens favours the experts whose router column
+    # leans its way, so the popular ones overflow at capacity factor 1.25.
+    x = torch.randn(EP_BATCH, EP_SEQ, base.d_model, generator=gen,
+                    device=dev)
+    x += torch.randn(base.d_model, generator=gen, device=dev)
+    ct = torch.randn(x.shape, generator=gen, device=dev)
+    names = sorted(params)
+    out = dict(d_model=base.d_model, experts=base.n_experts,
+               top_k=base.top_k, d_ff=base.d_ff,
+               tokens=x.shape[0] * x.shape[1], shards=EP_SHARDS)
+    for cf in (EP_CF, base.capacity_factor):
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xr = x.detach().requires_grad_()
+        want, want_aux = mlp.moe_fwd(p, xr, cfg)
+        want_g = torch.autograd.grad((want * ct).sum() + want_aux,
+                                     [p[k] for k in names] + [xr])
+        t = x.shape[0] * x.shape[1]
+        with torch.no_grad():
+            gate, idx, _ = mlp._router(p, x.reshape(t, -1), cfg)
+            cap = mlp.moe_capacity(cfg, t)
+            keep = ops.moe_dispatch(x.reshape(t, -1), idx, cfg.n_experts,
+                                    cap, impl="ref")[2]
+
+        def ep():
+            flat = xr.reshape(t, -1)
+            g_, i_, aux_ = mlp._router(p, flat, cfg)
+            parts = [mlp._ep_shard(p, flat, g_, i_, cfg, m, EP_SHARDS, cap)
+                     for m in range(EP_SHARDS)]
+            total = parts[0][0]
+            for part, _ in parts[1:]:
+                total = total + part
+            grads = torch.autograd.grad((total.reshape(x.shape) * ct).sum()
+                                        + aux_, [p[k] for k in names] + [xr])
+            return total.reshape(x.shape), aux_, [k for _, k in parts], grads
+
+        got, aux, kept, got_g = counted(ops, launches, ep)
+        counts = counted.last
+        with torch.no_grad():
+            flat = x.reshape(t, -1)
+            shard_equal = []
+            for m in range(EP_SHARDS):
+                a = mlp._ep_shard(params, flat, gate, idx, cfg, m, EP_SHARDS,
+                                  cap)
+                b = mlp._ep_shard(params, flat, gate, idx, cfg, m, EP_SHARDS,
+                                  cap, impl="ref")
+                shard_equal.append(torch.equal(a[0], b[0])
+                                   and torch.equal(a[1], b[1]))
+        union = kept[0]
+        for k in kept[1:]:
+            union = union | k
+        rec = dict(capacity=cap,
+                   max_abs_err=float((got - want).detach().abs().max()),
+                   aux_equal=bool(torch.equal(aux, want_aux)),
+                   grad_max_abs_err={
+                       n_: float((a - b).abs().max())
+                       for n_, a, b in zip(names + ["x"], got_g, want_g)},
+                   kept=int(keep.sum()), kept_equal=bool(torch.equal(
+                       union, keep)),
+                   shards_bitwise_plain=shard_equal,
+                   launches={k: counts[k] for k in MOE_CONVERTERS})
+        out[f"capacity_factor {cf}"] = rec
+        log(f"ep moe cf {cf}: " + json.dumps(rec))
+        require(rec["max_abs_err"] <= EP_TOL, f"mesh: EP MoE output off by "
+                f"{rec['max_abs_err']} at capacity factor {cf}")
+        require(max(rec["grad_max_abs_err"].values()) <= EP_TOL,
+                f"mesh: EP MoE gradients off: {rec['grad_max_abs_err']}")
+        require(rec["aux_equal"], "mesh: EP MoE aux differs")
+        require(rec["kept_equal"], f"mesh: EP kept masks differ at capacity "
+                f"factor {cf}")
+        require((rec["kept"] < keep.numel()) == (cf < EP_CF),
+                f"mesh: capacity factor {cf} kept {rec['kept']} of "
+                f"{keep.numel()} assignments")
+        require(all(shard_equal), f"mesh: an EP shard differs from its "
+                f"plain dispatch/combine: {shard_equal}")
+        want_n = 2 * EP_SHARDS  # forward and backward, each shard
+        require(all(counts[k] == want_n for k in MOE_CONVERTERS),
+                f"mesh: EP launches {counts}, want {want_n} of each "
+                f"converter")
+    del params, x, ct
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_sharded_embedding(dev):
+    """yi-6b's 64,000 x 4,096 table over ``EMB_SHARDS`` vocab shards in
+    turn, on the training batch's 4 x 4,096 ids: the summed shard
+    lookups bitwise ``table[ids]``, and the shards' scatter-adds bitwise
+    the unsharded gather's gradient."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import lm
+
+    cfg = get_config("yi-6b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.randn(cfg.vocab, cfg.d_model, generator=gen, device=dev)
+    ids = torch.randint(0, cfg.vocab, (TRAIN_BATCH,
+                                       SHAPES["train_4k"].seq_len),
+                        generator=gen, device=dev)
+    g = torch.randn(ids.shape + (cfg.d_model,), generator=gen, device=dev)
+    vs = cfg.vocab // EMB_SHARDS
+    tr = table.detach().requires_grad_()
+    (want_g,) = torch.autograd.grad(tr[ids.long()], [tr], g)
+    with torch.no_grad():
+        want = table[ids.long()]
+        got = torch.zeros_like(want)
+        for m in range(EMB_SHARDS):
+            got += lm._embed_shard_fwd(table[m * vs:(m + 1) * vs], ids,
+                                       m * vs, torch.float32)
+        got_g = torch.cat([lm._embed_shard_bwd(ids, g, m * vs, vs,
+                                               torch.float32)
+                           for m in range(EMB_SHARDS)])
+    out = dict(table=list(table.shape), ids=list(ids.shape),
+               shards=EMB_SHARDS, forward_equal=torch.equal(got, want),
+               grad_equal=torch.equal(got_g, want_g),
+               grad_max_abs_err=float((got_g - want_g).abs().max()))
+    require(out["forward_equal"], "mesh: the sharded embedding's forward "
+            "is not table[ids] bit for bit")
+    require(out["grad_equal"], f"mesh: the sharded embedding's gradient "
+            f"differs by {out['grad_max_abs_err']}")
+    del table, ids, g, tr, want_g, got, got_g, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_parallel(dev, training):
+    """Phase 14: a world-size-1 nccl group from a file store, then
+    ``int8_psum``, the compressed step, EP MoE and the sharded
+    embedding.  Returns (the phase's numbers, its launch counts)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh, bind_mesh
+    from repro_torch.parallel import collectives
+
+    launches = {k: 0 for k in ops.launch_counts()}
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        backend = collectives.init_group(tmp, 0, 1, device_type="cuda")
+        mesh = bind_mesh(Mesh(("data",), (1,)), "cuda")
+        group = collectives.axis_group(mesh, "data")
+        out.update(backend=backend, group_backend=dist.get_backend(group),
+                   init_s=time.perf_counter() - t0)
+        require(out["group_backend"] == "nccl",
+                f"mesh: the group's backend is {out['group_backend']}")
+        t0 = time.perf_counter()
+        out["int8_psum"] = check_int8_psum(dev, group, training["params"])
+        out["int8_psum_s"] = time.perf_counter() - t0
+        log("mesh int8_psum: " + json.dumps(out["int8_psum"]))
+        t0 = time.perf_counter()
+        out["compressed"], counts = run_compressed_step(dev, mesh, training)
+        out["compressed_s"] = time.perf_counter() - t0
+        for k, v in counts.items():
+            launches[k] += v
+        t0 = time.perf_counter()
+        out["ep_moe"], counts = run_ep_moe(dev)
+        out["ep_moe_s"] = time.perf_counter() - t0
+        for k, v in counts.items():
+            launches[k] += v
+        t0 = time.perf_counter()
+        out["embedding"] = run_sharded_embedding(dev)
+        out["embedding_s"] = time.perf_counter() - t0
+    finally:
+        collectives.destroy_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -3171,9 +3529,10 @@ def main() -> int:
         log(f"kernel {key[0]} [{key[1]}]: " + json.dumps(records[key]))
     phase_s["flash kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    summary, counts = run_training(dev)
+    training, counts = run_training(dev)
     for k, v in counts.items():
         launches[k] += v
+    summary = training
     log(f"training yi-6b width ({smi}): " + json.dumps(summary))
     log(f"training: step {summary['step_median_s']:.3f} s median, "
         f"{summary['tokens_per_s']:.1f} tokens/s, device idle share "
@@ -3245,6 +3604,20 @@ def main() -> int:
     summary = run_dryrun(smi)
     log(f"dryrun ({smi}): " + json.dumps(summary))
     phase_s["dryrun"] = time.perf_counter() - t0
+
+    # -- phase 14: the mesh-parallel paths (A9b), world size 1 ---------------
+    t0 = time.perf_counter()
+    summary, counts = run_mesh_parallel(dev, training)
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"mesh-parallel ({smi}): " + json.dumps(summary))
+    comp = summary["compressed"]
+    log(f"mesh-parallel: int8_psum of {summary['int8_psum']['n']} values "
+        f"{summary['int8_psum']['ms_median']:.1f} ms; compressed steps "
+        f"{comp['step_s']} s, peak {comp['peak_memory_gb']:.2f} GB, flash "
+        f"launches per step {comp['launches_per_step']}; EP MoE and the "
+        f"sharded embedding checked")
+    phase_s["mesh-parallel"] = time.perf_counter() - t0
     phase_s["total"] = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(phase_s))
     log(f"profiler: {len(PROFILER_MISSES)} device_ms values taken by CUDA "

@@ -14,6 +14,14 @@ in the manifest's dtype.  ``save_async`` copies every leaf to host memory
 before it returns (the training step updates its tensors in place) and
 writes on a background thread.  ``restore`` puts each leaf on the target
 leaf's device, in its dtype, with its ``requires_grad``.
+
+Checkpoints are mesh-agnostic, which is the elastic path: a DTensor leaf
+is saved as its full logical array (``full_tensor``, so every rank of
+its mesh calls ``save``; global rank 0 writes and the others wait at a
+barrier), and ``restore`` takes a target tree of
+``parallel.sharding.Sharding`` (or of DTensors) as well as of tensors, and
+distributes each full array onto the target's mesh, which may have
+another size or layout than the one that saved it.
 """
 from __future__ import annotations
 
@@ -39,8 +47,17 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 _NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
 
 
+def _distributed(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _to_host(leaf) -> tuple:
-    """(dtype name, numpy copy) of a tensor or array leaf."""
+    """(dtype name, numpy copy) of a tensor or array leaf; a DTensor's full
+    logical array (a collective over its mesh)."""
+    if _distributed(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         name = _NAMES[t.dtype]
@@ -57,27 +74,41 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False  # the pending save has DTensor leaves
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any) -> str:
         self.wait()
-        return self._write(step, self._snapshot(tree))
+        host, writer = self._snapshot(tree)
+        path = (self._write(step, host) if writer else
+                os.path.join(self.dir, f"step_{step:08d}"))
+        self.wait()
+        return path
 
     def save_async(self, step: int, tree: Any) -> None:
         self.wait()
-        host = self._snapshot(tree)  # copied now; written in the background
-        self._thread = threading.Thread(
-            target=self._write, args=(step, host), daemon=True)
-        self._thread.start()
+        host, writer = self._snapshot(tree)  # copied now; written later
+        if writer:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host), daemon=True)
+            self._thread.start()
 
     def wait(self) -> None:
+        """Until the last save is on disk (on every rank, for a tree with
+        DTensor leaves)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            torch.distributed.barrier()
 
-    @staticmethod
-    def _snapshot(tree: Any) -> list:
-        return [(path,) + _to_host(leaf) for path, leaf in tree_paths(tree)]
+    def _snapshot(self, tree: Any) -> tuple:
+        """(host copies of the leaves, whether this rank writes them)."""
+        paths = tree_paths(tree)
+        self._barrier = any(_distributed(leaf) for _, leaf in paths)
+        host = [(path,) + _to_host(leaf) for path, leaf in paths]
+        return host, not self._barrier or torch.distributed.get_rank() == 0
 
     def _write(self, step: int, host: list) -> str:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -124,8 +155,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, target: Any) -> Any:
-        """A tree shaped like ``target`` (a nested dict of tensors) holding
-        the checkpoint's leaves on each target leaf's device and dtype."""
+        """A tree shaped like ``target`` holding the checkpoint's leaves:
+        for a tensor leaf on its device, in its dtype; for a ``Sharding``
+        a DTensor on its mesh in the saved dtype; for a DTensor one with
+        its mesh, placements and dtype."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..parallel.sharding import Sharding
+
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -136,11 +173,22 @@ class CheckpointManager:
         out = []
         for i, (tpath, tgt) in enumerate(targets):
             arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
+            saved = _TORCH_DTYPES[manifest["dtypes"][i]]
+            if isinstance(tgt, Sharding):
+                t = torch.from_numpy(arr).to(saved)
+                out.append(tgt.distribute(t.to(
+                    tgt.mesh.device_mesh.device_type)))
+                continue
             if tuple(arr.shape) != tuple(tgt.shape):
                 raise ValueError(f"leaf {i} {tpath}: checkpoint "
                                  f"{arr.shape} vs target {tuple(tgt.shape)}")
-            saved = _TORCH_DTYPES[manifest["dtypes"][i]]
-            t = torch.from_numpy(arr).to(saved).to(device=tgt.device,
-                                                   dtype=tgt.dtype)
+            t = torch.from_numpy(arr).to(saved)
+            if _distributed(tgt):
+                mesh = tgt.device_mesh
+                t = distribute_tensor(t.to(device=mesh.device_type,
+                                           dtype=tgt.dtype), mesh,
+                                      tgt.placements, src_data_rank=None)
+            else:
+                t = t.to(device=tgt.device, dtype=tgt.dtype)
             out.append(t.requires_grad_(tgt.requires_grad))
         return tree_unflatten(target, out)

@@ -16,7 +16,7 @@ Answers "does this config fit, and how much work is it, on a 256- or
 
 Not measured, and ``null`` in the record: temporary bytes (XLA's
 ``temp_size_in_bytes`` has no torch counterpart), per-device FLOPs and
-collectives, which need the step run as DTensors over a mesh (ROADMAP A9).
+collectives, which need the step run as DTensors over a mesh (ROADMAP A9c).
 The reference's TPU roofline constants are not carried over.
 
 Records go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
@@ -59,9 +59,9 @@ ARTIFACT_DIR = (Path(__file__).resolve().parents[3] / "artifacts"
 NOT_MEASURED = {
     "temp_bytes": "XLA's temporary buffers have no torch counterpart",
     "dot_flops_per_device": "needs the step run as DTensors over a mesh "
-                            "(ROADMAP A9)",
+                            "(ROADMAP A9c)",
     "collectives": "need the step run as DTensors over a mesh under "
-                   "CommDebugMode (ROADMAP A9)",
+                   "CommDebugMode (ROADMAP A9c)",
 }
 
 
@@ -203,7 +203,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"GiB fits={rec['fits']} flops="
                   f"{'skipped' if fl is None else f'{fl:.4e}'}", flush=True)
     print("per-device FLOPs, temp bytes and collectives: not measured "
-          "(they need the step run as DTensors over a mesh, ROADMAP A9)")
+          "(they need the step run as DTensors over a mesh, ROADMAP A9c)")
     if card is not None:
         print(f"card: {card['nvidia_smi'] or card['name']}, "
               f"{card['total_memory'] / 2**30:.2f} GiB")

@@ -44,6 +44,7 @@ from ..device import resolve_device
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import rwkv6 as rwkv_mod
+from ..parallel import collectives
 from .common import (Param, cast_tree, chunked_softmax_xent, init_params,
                      map_tree, rms_norm, stack_layer_defs, tree_paths)
 from .mlp import MLP_WEIGHT_NAMES, mlp_defs, mlp_fwd, moe_defs, moe_fwd
@@ -228,16 +229,16 @@ def global_flags(cfg: ArchConfig) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(lp, x: torch.Tensor, cfg: ArchConfig, impl: str
+def _ffn(lp, x: torch.Tensor, cfg: ArchConfig, impl: str, rules=None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The block's MLP or MoE on ``x`` (normed): (output, aux loss)."""
     if cfg.n_experts:
-        return moe_fwd(lp["moe"], x, cfg, impl=impl)
+        return moe_fwd(lp["moe"], x, cfg, impl=impl, rules=rules)
     return mlp_fwd(lp["mlp"], x, cfg), x.new_zeros((), dtype=torch.float32)
 
 
 def _block_train(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
-                 positions: torch.Tensor, impl: str
+                 positions: torch.Tensor, impl: str, rules=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux loss)."""
     if cfg.ssm == "rwkv6":
@@ -249,12 +250,12 @@ def _block_train(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
     else:
         x = x + attn_mod.attention_fwd(lp["attn"], rms_norm(x, lp["ln1"]),
                                        cfg, is_global, positions, impl=impl)
-    m, aux = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
+    m, aux = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl, rules)
     return x + m, aux
 
 
 def _block_prefill(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
-                   cache, impl: str):
+                   cache, impl: str, rules=None):
     """Returns (x, the layer's cache: the same tensors written in place,
     or a recurrent state to be written)."""
     if cfg.ssm == "rwkv6":
@@ -266,7 +267,7 @@ def _block_prefill(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
         a, cache = attn_mod.attention_prefill(
             lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache)
     x = x + a
-    m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
+    m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl, rules)
     return x + m, cache
 
 
@@ -286,24 +287,115 @@ def _block_decode(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
     return x + m, cache
 
 
-def embed_tokens(params, batch, cfg: ArchConfig) -> torch.Tensor:
+def _embed_shard_fwd(tbl: torch.Tensor, ids: torch.Tensor, lo: int,
+                     dt: torch.dtype) -> torch.Tensor:
+    """The rows of ``ids`` that the vocab shard ``tbl`` (its rows start at
+    ``lo``) holds, in ``dt``, and zeros for the others."""
+    loc = ids.long() - lo
+    ok = (loc >= 0) & (loc < tbl.shape[0])
+    x = tbl[loc.clamp(0, tbl.shape[0] - 1)].to(dt)
+    return torch.where(ok[..., None], x, torch.zeros((), dtype=dt,
+                                                     device=x.device))
+
+
+def _embed_shard_bwd(ids: torch.Tensor, g: torch.Tensor, lo: int, vs: int,
+                     dt: torch.dtype) -> torch.Tensor:
+    """The gradient (vs, D) in ``dt`` of the shard of rows [lo, lo + vs)
+    from the cotangent ``g`` (..., D) of the rows of ``ids``: a local
+    scatter-add of the entries the shard owns, by ``index_put_`` with
+    accumulate as the unsharded gather's backward, so each row sums the
+    same terms in the same order and the result is that gradient's rows,
+    bit for bit, on the card too."""
+    loc = ids.long().reshape(-1) - lo
+    ok = (loc >= 0) & (loc < vs)
+    gt = torch.zeros((vs, g.shape[-1]), dtype=dt, device=g.device)
+    return gt.index_put_((loc[ok],), g.reshape(-1, g.shape[-1])[ok].to(dt),
+                         accumulate=True)
+
+
+class _ShardedEmbed(torch.autograd.Function):
+    """The vocab-sharded gather: forward, the shard's own rows summed over
+    the vocab axis; backward, a local scatter-add of this rank's block of
+    the batch, summed over the batch axes only."""
+
+    @staticmethod
+    def forward(ctx, tbl, ids, lo, vocab_group, batch_group, n_batch,
+                batch_index, psum_dt, dt):
+        ctx.save_for_backward(ids)
+        ctx.lo, ctx.vs, ctx.tdtype = lo, tbl.shape[0], tbl.dtype
+        ctx.batch_group, ctx.n_batch, ctx.batch_index = (
+            batch_group, n_batch, batch_index)
+        ctx.psum_dt = psum_dt
+        x = _embed_shard_fwd(tbl, ids, lo, psum_dt)
+        return collectives.psum(x, vocab_group).to(dt)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        b = ids.shape[0] // ctx.n_batch
+        rows = slice(ctx.batch_index * b, (ctx.batch_index + 1) * b)
+        gt = _embed_shard_bwd(ids[rows], g[rows], ctx.lo, ctx.vs,
+                              ctx.psum_dt)
+        if ctx.batch_group is not None:
+            gt = collectives.psum(gt, ctx.batch_group)
+        return (gt.to(ctx.tdtype),) + (None,) * 8
+
+
+def _embed_lookup(table, ids: torch.Tensor, rules, dt: torch.dtype
+                  ) -> torch.Tensor:
+    """``table[ids]`` in ``dt``; with rules on a bound mesh that shard the
+    vocab over more than one device, the reference's shard-local gather.
+
+    Every rank holds the ids and the table whole (plain tensors); its
+    shard is rows ``[m·V/n, (m+1)·V/n)`` of the table.  The forward
+    takes the shard's own rows, zeros the rest, and sums over the vocab
+    axis (one nonzero term a row: the sum is exact).  The backward
+    scatter-adds this rank's block of the batch (by its index along the
+    batch axes) into its rows and sums over the batch axes only.  Sums
+    run in float32 on the CPU and in ``dt`` on the card, as the
+    reference's ``psum_dt``."""
+    ax = rules.axis("vocab") if rules is not None else None
+    n = rules.axis_size("vocab") if rules is not None else 1
+    if rules is None or rules.mesh is None or not isinstance(ax, str) \
+            or n == 1:
+        # The gather's backward is index_put_ with accumulate, which
+        # PyTorch runs on CUDA by sorting the indices and summing each
+        # row's repeats in order, with no atomics: a step's gradients
+        # repeat bit for bit, which the resume check of chip_smoke.py
+        # relies on and checks.
+        return table[ids.long()].to(dt)
+    mesh = rules.mesh
+    vs = table.shape[0] // n
+    m = collectives.axis_index(mesh, ax)
+    lo = m * vs
+    tbl = table[lo:lo + vs]
+    batch_ax = rules.axis("batch")
+    if batch_ax is None:
+        batch_group, n_batch, batch_index = None, 1, 0
+    else:
+        batch_group = collectives.axis_group(mesh, batch_ax)
+        n_batch = collectives.axis_size(mesh, batch_ax)
+        batch_index = collectives.axis_index(mesh, batch_ax)
+    psum_dt = torch.float32 if ids.device.type == "cpu" else dt
+    return _ShardedEmbed.apply(tbl, ids, lo, collectives.axis_group(mesh, ax),
+                               batch_group, n_batch, batch_index, psum_dt,
+                               dt)
+
+
+def embed_tokens(params, batch, cfg: ArchConfig, rules=None) -> torch.Tensor:
     """The model's input sequence (B, S, d_model) in the compute dtype: an
     audio model's frames (``batch['frontend']`` (B, S, frontend_dim))
     projected; a vision model's patches projected and placed before its
     token embeddings; any other model's token embeddings (scaled by
-    sqrt(d_model) for gemma)."""
+    sqrt(d_model) for gemma), through :func:`_embed_lookup` with
+    ``rules``."""
     dt = cfg.compute_dtype
     parts = []
     if cfg.modality in ("audio", "vlm") and "frontend" in batch:
         parts.append(batch["frontend"].to(dt)
                      @ params["frontend_proj"].to(dt))
     if cfg.modality != "audio":
-        # The gather's backward is index_put_ with accumulate, which
-        # PyTorch runs on CUDA by sorting the indices and summing each
-        # row's repeats in order, with no atomics: a step's gradients
-        # repeat bit for bit, which the resume check of chip_smoke.py
-        # relies on and checks.
-        x = params["embed"][batch["tokens"].long()].to(dt)
+        x = _embed_lookup(params["embed"], batch["tokens"], rules, dt)
         if cfg.name.startswith("gemma"):
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
         parts.append(x)
@@ -316,8 +408,8 @@ def output_weight(params, cfg: ArchConfig) -> torch.Tensor:
     return params["head"]
 
 
-def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda"
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda",
+               rules=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens (B, S), targets (B, S), mask (B, S), and for an audio
     or vision model ``frontend`` (an audio batch has no tokens).  Returns
     ``(loss, {"ce_loss", "aux_loss", "tokens"})``.
@@ -325,16 +417,19 @@ def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda"
     ``impl`` selects the kernels: ``'cuda'`` the flash kernels and, for an
     MoE model, the indirect converters of the dispatch and combine, for
     tensors on the card (their plain versions on the CPU); ``'ref'`` the
-    plain versions anywhere.
+    plain versions anywhere.  ``rules`` on a bound mesh takes the
+    reference's mesh paths: the vocab-sharded embedding gather
+    (:func:`_embed_lookup`) and expert-parallel MoE (``mlp._ep_moe_fwd``);
+    ``None`` is the single-device path.
     """
-    x = embed_tokens(params, batch, cfg)
+    x = embed_tokens(params, batch, cfg, rules)
     positions = torch.arange(x.shape[1], device=x.device)
     flags = global_flags(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         lp = map_tree(lambda t: t[i], params["layers"])
-        args = (x, lp, cfg, bool(flags[i]), positions, impl)
+        args = (x, lp, cfg, bool(flags[i]), positions, impl, rules)
         x, a = (checkpoint(_block_train, *args, use_reentrant=False) if remat
                 else _block_train(*args))
         aux = aux + a
@@ -419,16 +514,18 @@ def _logits(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x @ output_weight(params, cfg).to(cfg.compute_dtype)
 
 
-def prefill(params, batch, cache, cfg: ArchConfig, impl: str = "cuda"):
+def prefill(params, batch, cache, cfg: ArchConfig, impl: str = "cuda",
+            rules=None):
     """Fill the cache from a prompt (``batch['tokens']`` (B, S), and a
     vision model's ``frontend``); returns (last-token logits (B, 1, V),
-    cache).  ``impl`` selects the MoE dispatch and combine
-    (:func:`train_loss`); the attention of the dense path is plain tensor
-    code on every device, as in the reference."""
-    x = embed_tokens(params, batch, cfg)
+    cache).  ``impl`` selects the MoE dispatch and combine and ``rules``
+    the mesh paths (:func:`train_loss`); the attention of the dense path
+    is plain tensor code on every device, as in the reference."""
+    x = embed_tokens(params, batch, cfg, rules)
     x, cache = _run_with_cache(
         params, x, cache, cfg,
-        lambda x_, lp, g, lc: _block_prefill(x_, lp, cfg, g, lc, impl))
+        lambda x_, lp, g, lc: _block_prefill(x_, lp, cfg, g, lc, impl,
+                                             rules))
     return _logits(params, x[:, -1:], cfg), cache
 
 

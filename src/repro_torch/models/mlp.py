@@ -9,9 +9,16 @@ products), as the reference leaves them to XLA outside any kernel.  Every
 weight is read through :func:`_w`, which also takes the w8a16 form of
 ``lm.quantize_mlp_weights`` (int8 codes and per-channel scales).
 
-The reference's expert-parallel lowering (``_ep_moe_fwd``, a shard_map
-over the mesh's experts axis) needs a device mesh, which the port does not
-have yet: it raises, naming ROADMAP A9.
+With sharding rules on a bound mesh whose experts axis has more than one
+device, :func:`moe_fwd` takes the reference's expert-parallel lowering
+(:func:`_ep_moe_fwd`, a ``shard_map`` over the experts axis there): every
+rank routes all tokens, packs those assigned to its own E/n experts
+(the rest go to an overflow expert that is dropped), runs its experts'
+FFN, combines its partial output, and one sum over the experts axis
+adds the partials.  The dispatch and combine take ``impl`` as the
+portable path does, so on the card they are the converter kernels.
+:func:`_ep_shard` is one shard's share, which a single card can also
+compute for every shard in turn.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from ..parallel import collectives
 from .common import ACTIVATIONS, Param
 
 __all__ = ["MLP_WEIGHT_NAMES", "mlp_defs", "mlp_fwd", "moe_capacity",
@@ -115,8 +123,8 @@ def _router(p, flat: torch.Tensor, cfg: ArchConfig):
     return gate, idx, aux
 
 
-def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, impl: str = "cuda"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, impl: str = "cuda",
+            rules=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (output (B, S, D), aux load-balance loss).
 
     The reference's portable path: route, dispatch into (E, C, D) buffers
@@ -124,25 +132,96 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, impl: str = "cuda"
     weighted by the kept gates.  ``impl`` goes to ``ops.moe_dispatch`` /
     ``moe_combine``: ``'cuda'`` the indirect converter kernels for tensors
     on the card (their plain versions on the CPU), ``'ref'`` the oracles.
+    ``rules`` on a bound mesh with more than one device along the experts
+    axis takes the expert-parallel path (:func:`_ep_moe_fwd`); ``None``,
+    or one device there, is the portable path.
     """
     b, s, d = x.shape
     t = b * s
     flat = x.reshape(t, d)
-    gate, idx, aux = _router(p, flat, cfg)
-    cap = moe_capacity(cfg, t)
-    buf, src, keep = ops.moe_dispatch(flat, idx, cfg.n_experts, cap,
-                                      impl=impl)
-    out_buf = _expert_ffn(p, buf, cfg)
-    out = ops.moe_combine(out_buf, src, gate * keep, t, impl=impl)
-    out = out.reshape(b, s, d)
+    ep = rules.axis("experts") if rules is not None else None
+    n_ep = rules.axis_size("experts") if rules is not None else 1
+    if rules is not None and rules.mesh is not None and isinstance(ep, str) \
+            and n_ep > 1:
+        out, aux = _ep_moe_fwd(p, flat, cfg, rules, ep, n_ep, impl)
+        out = out.reshape(b, s, d)
+    else:
+        gate, idx, aux = _router(p, flat, cfg)
+        cap = moe_capacity(cfg, t)
+        buf, src, keep = ops.moe_dispatch(flat, idx, cfg.n_experts, cap,
+                                          impl=impl)
+        out_buf = _expert_ffn(p, buf, cfg)
+        out = ops.moe_combine(out_buf, src, gate * keep, t, impl=impl)
+        out = out.reshape(b, s, d)
     if cfg.dense_residual:
         out = out + mlp_fwd(p["dense"], x, cfg)
     return out, aux
 
 
-def _ep_moe_fwd(*args, **kwargs):
-    """The reference's ``_ep_moe_fwd`` (expert parallelism over a mesh)."""
-    raise NotImplementedError(
-        "expert-parallel MoE (the reference's _ep_moe_fwd, a shard_map over "
-        "the mesh's experts axis) needs a device mesh, which the port does "
-        "not have yet (ROADMAP A9)")
+def _expert_block(leaf, m: int, e_loc: int):
+    """Shard ``m``'s experts of an expert weight: rows ``[m·e_loc,
+    (m+1)·e_loc)`` of a whole tensor, or of each part of a w8a16 dict."""
+    if isinstance(leaf, dict):
+        return {k: _expert_block(v, m, e_loc) for k, v in leaf.items()}
+    return leaf[m * e_loc:(m + 1) * e_loc]
+
+
+def _ep_shard(p, tokens: torch.Tensor, gate: torch.Tensor,
+              idx: torch.Tensor, cfg: ArchConfig, m: int, n_ep: int,
+              cap: int, impl: str = "cuda"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shard ``m`` of ``n_ep``'s share of the MoE output: the assignments
+    to its ``E / n_ep`` experts packed with capacity ``cap`` (the others
+    to the overflow expert ``e_loc``, which is dropped), its experts' FFN,
+    and the combine weighted by the kept local gates.  Returns (partial
+    output (T, D) in the compute dtype, kept (T, K): the assignments this
+    shard kept)."""
+    e_loc = cfg.n_experts // n_ep
+    local_idx = idx - m * e_loc
+    ok = (local_idx >= 0) & (local_idx < e_loc)
+    masked = torch.where(ok, local_idx, torch.full_like(local_idx, e_loc))
+    buf, src, keep = ops.moe_dispatch(tokens, masked, e_loc + 1, cap,
+                                      impl=impl)
+    w = {name: _expert_block(p[name], m, e_loc) for name in MLP_WEIGHT_NAMES
+         if name in p}
+    out_buf = _expert_ffn(w, buf[:e_loc], cfg)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((1,)
+                                                    + out_buf.shape[1:])])
+    kept = keep & ok
+    partial = ops.moe_combine(out_buf, src, (gate * kept).float(),
+                              tokens.shape[0], impl=impl)
+    return partial, kept
+
+
+def _ep_moe_fwd(p, flat: torch.Tensor, cfg: ArchConfig, rules, ep: str,
+                n_ep: int, impl: str = "cuda"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over the mesh axis ``ep`` (the reference's
+    ``shard_map`` manual over it): flat (T, D) → (output (T, D), aux).
+
+    Every rank holds the tokens whole, as the reference's shard_map sees
+    them, and the parameters whole, as plain tensors (its experts are
+    rows of the expert weights), and routes the tokens all (the same on every rank, so ``aux`` is
+    local); its shard (:func:`_ep_shard`) packs, runs and combines its
+    own experts' assignments, with the capacity of the tokens of one
+    batch shard, as the reference computes it.  One sum over ``ep`` adds
+    the partial outputs.  The gradients of the tokens and gates that the
+    shard used are summed over ``ep`` in the backward, where the
+    reference sums the cotangents of its replicated inputs.  The sums
+    run in float32 on the CPU and in the compute dtype on the card, as
+    the reference's ``psum_dt``.
+    """
+    dt = cfg.compute_dtype
+    psum_dt = torch.float32 if flat.device.type == "cpu" else dt
+    group = collectives.axis_group(rules.mesh, ep)
+    m = collectives.axis_index(rules.mesh, ep)
+    t_shard = max(1, flat.shape[0] // max(1, rules.axis_size("batch")))
+    cap = moe_capacity(cfg, t_shard)
+    tokens = flat.to(dt)
+    gate, idx, aux = _router(p, tokens, cfg)
+    shard_tokens = collectives.sum_backward(tokens.to(psum_dt), group).to(dt)
+    shard_gate = collectives.sum_backward(gate, group)
+    partial, _ = _ep_shard(p, shard_tokens, shard_gate, idx, cfg, m, n_ep,
+                           cap, impl)
+    out = collectives.sum_forward(partial.to(psum_dt), group).to(dt)
+    return out, aux

@@ -19,12 +19,19 @@ with ``.shape``, a name → size mapping (``launch.mesh.Mesh``).
 :func:`shard_shape` is the per-device block of a sharded dim set, as
 ``NamedSharding.shard_shape`` gives it.
 
-Left out until the port has a device mesh (ROADMAP A9): ``constrain``
-(``with_sharding_constraint`` by logical names) and ``param_shardings``
-(the rules bound to devices).  For A9: the fsdp rule is ``('data',
-'pod')``, the reverse of the mesh's ``('pod', 'data', 'model')``.  Shard
-shapes do not depend on the order, but which block lands on which device
-does, and a DTensor ``Shard`` over two mesh dims follows mesh order.
+On a mesh bound to a process group (``launch.mesh.bind_mesh``) a spec
+becomes DTensor placements (:func:`placements`, :class:`Sharding`,
+:func:`param_shardings`), and :func:`constrain` redistributes a DTensor
+to the rules' placements (the reference's ``with_sharding_constraint``).
+A dim sharded over a tuple of axes is split with the tuple's first axis
+outermost, as ``NamedSharding`` splits it.  The fsdp rule ``('data',
+'pod')`` is the reverse of the mesh's ``('pod', 'data', 'model')``, and a
+DTensor ``Shard`` over two mesh dims follows mesh order, so such a pair
+is placed with ``_StridedShard`` on the mesh's earlier axis: each device
+holds the block the reference's ``NamedSharding`` gives it.  These
+placements lay out checkpoints and the elastic reshard
+(``runtime.reshard_state``); the model's mesh paths (``mlp._ep_moe_fwd``,
+``lm._embed_lookup``) take their parameters whole, as plain tensors.
 """
 from __future__ import annotations
 
@@ -32,14 +39,20 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
+import torch
+
 from ..models.common import map_tree, tree_paths
 
 __all__ = [
     "Axis",
+    "Sharding",
     "ShardingRules",
+    "constrain",
     "make_rules",
     "mesh_axis_size",
+    "param_shardings",
     "param_specs",
+    "placements",
     "shard_shape",
     "validate_divisibility",
 ]
@@ -120,6 +133,70 @@ def make_rules(
 def param_specs(defs: Any, rules: ShardingRules) -> Any:
     """Param-def tree → spec tree (same structure)."""
     return map_tree(lambda p: rules.spec(p.dims), defs)
+
+
+def placements(spec: Sequence[Axis], mesh: Any) -> tuple:
+    """DTensor placements (one per mesh axis) of ``spec`` on ``mesh``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    names = tuple(mesh.axis_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        pos = [names.index(a) for a in axes]
+        if pos == sorted(pos):
+            for p in pos:
+                out[p] = Shard(dim)
+        elif len(pos) == 2:
+            # (outer, inner) with the inner axis first in the mesh: the
+            # mesh's earlier axis splits each of the outer axis' blocks.
+            outer, inner = pos
+            out[inner] = _StridedShard(dim, split_factor=mesh.shape[
+                names[outer]])
+            out[outer] = Shard(dim)
+        else:
+            raise NotImplementedError(f"spec entry {axes} on mesh {names}")
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A spec on a bound mesh: the counterpart of ``NamedSharding``."""
+
+    mesh: Any
+    spec: Tuple[Axis, ...]
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh)
+
+    def distribute(self, tensor: torch.Tensor):
+        """A DTensor of the full ``tensor`` (the same on every rank), each
+        rank keeping its own block; no communication."""
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(tensor, self.mesh.device_mesh,
+                                 self.placements, src_data_rank=None)
+
+
+def param_shardings(defs: Any, rules: ShardingRules, mesh: Any) -> Any:
+    """Param-def tree → :class:`Sharding` tree on the bound ``mesh``."""
+    return map_tree(lambda p: Sharding(mesh, rules.spec(p.dims)), defs)
+
+
+def constrain(x, rules: ShardingRules, dims: Sequence[Optional[str]]):
+    """``x`` laid out by the rules' spec of ``dims``: a DTensor is
+    redistributed to its placements; a plain tensor, or rules without a
+    mesh, pass through, as the reference outside a jit mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if rules.mesh is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(rules.mesh.device_mesh,
+                          placements(rules.spec(dims), rules.mesh))
 
 
 def mesh_axis_size(mesh: Any, axis: Axis) -> int:

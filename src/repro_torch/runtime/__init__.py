@@ -1,6 +1,7 @@
-"""Runtime of the port: fault tolerance and the straggler watchdog (from
-``repro.runtime``)."""
+"""Runtime of the port: fault tolerance, the straggler watchdog and the
+elastic reshard (from ``repro.runtime``)."""
 from .fault_tolerance import (FaultToleranceConfig, StragglerWatchdog,
-                              TrainController)
+                              TrainController, reshard_state)
 
-__all__ = ["FaultToleranceConfig", "StragglerWatchdog", "TrainController"]
+__all__ = ["FaultToleranceConfig", "StragglerWatchdog", "TrainController",
+           "reshard_state"]

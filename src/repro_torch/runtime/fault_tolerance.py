@@ -15,8 +15,14 @@ synchronizes the device of the state's first leaf.  A step function
 updates its state in place, so each run starts from the tree it is given
 (a resumed run from the restored one).  A run that ends by a simulated
 preemption lets its pending checkpoint write finish, so a run resumed
-after it sees that checkpoint.  Elastic re-meshing (``reshard_state``)
-waits for a mesh (ROADMAP A9).
+after it sees that checkpoint.
+
+* **Elastic re-scale**: :func:`reshard_state` moves a state tree onto a
+  different mesh (another size or layout, e.g. after losing hosts):
+  each leaf's full logical value distributed by its new
+  ``parallel.sharding.Sharding``.  Checkpoints hold full logical arrays
+  too, so ``CheckpointManager.restore`` against a tree of shardings is
+  the same move from disk.
 """
 from __future__ import annotations
 
@@ -29,9 +35,10 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..checkpoint.manager import CheckpointManager
-from ..models.common import tree_leaves
+from ..models.common import tree_leaves, tree_paths, tree_unflatten
 
-__all__ = ["FaultToleranceConfig", "StragglerWatchdog", "TrainController"]
+__all__ = ["FaultToleranceConfig", "StragglerWatchdog", "TrainController",
+           "reshard_state"]
 
 
 @dataclasses.dataclass
@@ -137,3 +144,19 @@ class TrainController:
         finally:
             self.ckpt.wait()
         return state
+
+
+def reshard_state(state: Any, shardings: Any) -> Any:
+    """``state`` (tensors or DTensors) on new shardings (a tree of
+    ``parallel.sharding.Sharding`` of the same structure): each leaf's
+    full value, gathered from its old mesh where it is a DTensor (a
+    collective over that mesh), kept on every rank as its new block."""
+    from torch.distributed.tensor import DTensor
+
+    out = []
+    for (_, leaf), (_, sharding) in zip(tree_paths(state),
+                                        tree_paths(shardings)):
+        full = leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+        out.append(sharding.distribute(full.to(
+            sharding.mesh.device_mesh.device_type)))
+    return tree_unflatten(state, out)

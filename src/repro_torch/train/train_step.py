@@ -5,20 +5,26 @@
 opt_state, metrics)``: the loss and its gradients (``torch.autograd.grad``
 over the parameter leaves), accumulated over ``grad_accum`` microbatches
 in float32 by a Python loop where the reference scans, then the
-optimizer's in-place update.  The int8-compressed data-parallel step
-(``make_compressed_train_step``) needs a mesh and raises, naming ROADMAP
-A9.
+optimizer's in-place update.
+
+``make_compressed_train_step`` is the reference's manual data-parallel
+step: each rank of the data-parallel group takes its block of the batch,
+and the gradients cross the group as int8 with error feedback
+(``optim.compression``), over the process group of the mesh's
+data-parallel axes.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..models import lm
 from ..models.common import map_tree, tree_leaves, tree_unflatten
+from ..optim import compression
 from ..optim.optimizers import Optimizer
+from ..parallel import collectives
 
 __all__ = ["grads_with_accum", "make_compressed_train_step", "make_loss_fn",
            "make_train_step"]
@@ -87,7 +93,50 @@ def make_train_step(cfg: ArchConfig, opt: Optimizer, grad_accum: int = 1,
     return train_step
 
 
-def make_compressed_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the int8 error-feedback data-parallel step needs a device mesh, "
-        "which the port does not have yet (ROADMAP A9)")
+def make_compressed_train_step(cfg: ArchConfig, opt: Optimizer, mesh,
+                               dp_axes: Tuple[str, ...] = ("data",),
+                               grad_accum: int = 1) -> Callable:
+    """The data-parallel step with the int8 error-feedback all-reduce:
+    ``(params, opt_state, batch, step, err_fb) → (params, opt_state,
+    err_fb, metrics)`` over the process group of ``dp_axes`` of the bound
+    ``mesh``.
+
+    The parameters are replicated over the group (``cfg.fsdp`` raises, as
+    the reference asserts).  Every rank is given the same global batch
+    and takes its block by its index along ``dp_axes``; the loss is
+    averaged over the group, the gradients summed by
+    ``compression.compressed_grad_psum`` and divided by the group's size,
+    then the optimizer updates in place.  ``err_fb`` is this rank's
+    ``(1, N)`` float32 residual, from ``step.init_err_fb(params)``.
+    """
+    if cfg.fsdp:
+        raise ValueError("the compressed data-parallel step needs "
+                         "replicated params (cfg.fsdp=False)")
+    loss_fn = make_loss_fn(cfg)
+    group = collectives.axis_group(mesh, dp_axes)
+    n_dp = collectives.axis_size(mesh, dp_axes)
+    me = collectives.axis_index(mesh, dp_axes)
+
+    def train_step(params, opt_state, batch, step, err_fb):
+        def local(x):
+            b = x.shape[0] // n_dp
+            return x[me * b:(me + 1) * b]
+
+        loss, metrics, grads = grads_with_accum(
+            loss_fn, params, map_tree(local, batch), grad_accum)
+        loss = collectives.psum(loss, group) / n_dp
+        grads, new_err = compression.compressed_grad_psum(grads, group,
+                                                          err_fb[0])
+        grads = map_tree(lambda g: g.div_(n_dp), grads)
+        new_params, new_opt, opt_metrics = opt.update(grads, opt_state,
+                                                      params, step)
+        return new_params, new_opt, new_err[None], {"loss": loss,
+                                                    **opt_metrics}
+
+    def init_err_fb(params):
+        leaf = tree_leaves(params)[0]
+        return torch.zeros((1, compression.tree_size(params)),
+                           dtype=torch.float32, device=leaf.device)
+
+    train_step.init_err_fb = init_err_fb
+    return train_step
