@@ -187,7 +187,13 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
     that phase allocated on the card (``torch.cuda.memory_allocated()``
     printed beside); and olmoe-1b-7b's full-size serving weights, bf16 in
     the dry run, beside the fp32 tree ``dense_generate`` held in phase 8,
-    with their factor.
+    with their factor.  Last, the per-device analysis (ROADMAP A9c) of
+    yi-6b and arctic-480b ``train_4k`` and qwen1.5-32b ``decode_32k`` on
+    both meshes: each step run once as ``meta`` DTensors over a fake
+    256- or 512-rank group in a subprocess of its own (all six at once,
+    beside the phase's other checks, as phase 14 owns this process's
+    group), with its per-device dot FLOPs, collectives by kind and wire
+    bytes, and seconds; a failed analysis or a null field fails the run.
 14. Mesh-parallel (ROADMAP A9b), world size 1: a ``torch.distributed``
     group on ``nccl`` from a file store (a failure to init fails the
     run) and the ``data`` mesh bound to it.  ``optim.compression.
@@ -208,6 +214,15 @@ Phases, each of which fails the run (nonzero exit) if anything is off:
     the portable path's).  The vocab-sharded embedding at yi-6b's 64,000
     x 4,096 table over 16 shards in turn on 4 x 4,096 ids: forward
     bitwise ``table[ids]``, gradient bitwise the unsharded gather's.
+    Then DTensors on a bound 1 x 1 ``data x model`` mesh (A9c): phase 7's
+    yi-6b step with ``param_shardings`` parameters, a DTensor batch and
+    the training rules' ``constrain`` calls, on the flash kernels: step
+    0's loss bitwise phase 7's first, the gradients of batch 0 bitwise
+    the plain tensors' (else the first differing leaf named and held
+    within 1e-5 relative), what ``CommDebugMode`` counted; EP MoE at
+    olmoe-1b-7b width with DTensor parameters, each of the 8 shards
+    bitwise the plain tensors', forward and backward, fsdp off and on,
+    on the converter kernels; the launches these runs add.
 
 It prints a JSON line with one entry per kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  The rows
@@ -437,6 +452,12 @@ CONTRACT_TOL = 2e-4
 ALLOCATED = {}
 SERVED = {}
 DRYRUN_CELLS = 64
+#: Phase 13's per-device analyses (each in a subprocess of its own, all at
+#: once): (arch, shape, multi-pod), and the seconds each may take.
+PER_DEVICE_CELLS = [(a, s, mp) for mp in (False, True) for a, s in (
+    ("yi-6b", "train_4k"), ("arctic-480b", "train_4k"),
+    ("qwen1.5-32b", "decode_32k"))]
+PER_DEVICE_TIMEOUT_S = 420
 
 # The mesh-parallel phase (world size 1, an nccl group from a file store):
 # int8_psum over the 4-layer yi-6b tree's length, held bitwise against the
@@ -2986,7 +3007,9 @@ def run_dryrun(smi):
     """Phase 13: every production cell on ``meta`` tensors against this
     card's memory, then the world-size-1 check against what the training
     phases allocated (``ALLOCATED``) and phase 8's serving weights
-    (``SERVED``).  Returns the phase's numbers."""
+    (``SERVED``), while the per-device analyses of ``PER_DEVICE_CELLS``
+    run in subprocesses (:func:`start_per_device`).  Returns the phase's
+    numbers."""
     import dataclasses
 
     from repro_torch.configs import SHAPES
@@ -2994,6 +3017,10 @@ def run_dryrun(smi):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.specs import build_cell
 
+    # Per-device dot FLOPs and collectives of six production cells, each
+    # step run as meta DTensors over a fake 256- or 512-rank group in a
+    # subprocess of its own (phase 14 owns this process's group).
+    pending = start_per_device()
     card = dryrun.card_info()
     mem = card["total_memory"]
     gib = 2 ** 30
@@ -3015,8 +3042,8 @@ def run_dryrun(smi):
             f"dryrun: {len(rows)} cells built, not {DRYRUN_CELLS}")
     fits = sum(bool(r["fits"]) for r in rows)
     log(f"dryrun: {len(rows)} cells in {secs:.2f} s; {fits} fit "
-        f"{mem / gib:.2f} GiB ({smi}); per-device FLOPs, temp bytes and "
-        f"collectives not measured (ROADMAP A9)")
+        f"{mem / gib:.2f} GiB ({smi}); temp bytes not measured (no torch "
+        f"counterpart)")
     out = dict(cells=len(rows), seconds=secs, fit=fits,
                card_memory=mem, world_size_1={})
 
@@ -3066,6 +3093,72 @@ def run_dryrun(smi):
             f"dry run, {got['param_bytes']:,} B fp32 held by "
             f"dense_generate (memory_allocated {got['memory_allocated']:,} "
             f"B): factor {factor:.4f} (ROADMAP A30)")
+    out["per_device"] = run_per_device(smi, pending)
+    return out
+
+
+def start_per_device():
+    """Start ``dryrun.per_device`` of ``PER_DEVICE_CELLS``, all at once,
+    each in its own subprocess (host CPU only) under
+    ``PER_DEVICE_TIMEOUT_S``; phase 13 collects them
+    (:func:`run_per_device`).  Returns (the pool, the futures, the start
+    time)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import dryrun
+
+    def one(cell):
+        arch, shape, multi_pod = cell
+        try:
+            return cell, dryrun.per_device(arch, shape, multi_pod,
+                                           timeout_s=PER_DEVICE_TIMEOUT_S)
+        except Exception as e:  # noqa: BLE001 -- reported through require
+            return cell, {"error": repr(e)[-3000:]}
+
+    pool = ThreadPoolExecutor(len(PER_DEVICE_CELLS))
+    return pool, [pool.submit(one, c) for c in PER_DEVICE_CELLS], \
+        time.perf_counter()
+
+
+def run_per_device(smi, pending):
+    """Phase 13's per-device analyses, started by
+    :func:`start_per_device`: a failed or timed-out analysis, or a missing
+    field, fails the run.  Returns the records by cell, with the seconds
+    from their start and the seconds this phase waited for them."""
+    pool, futures, t_start = pending
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        results = [f.result() for f in futures]
+    finally:
+        pool.shutdown(wait=True)
+    waited = time.perf_counter() - t0
+    for (arch, shape, multi_pod), rec in results:
+        mesh = "pod2x16x16" if multi_pod else "pod16x16"
+        out[f"{arch} {shape} {mesh}"] = rec
+        require("error" not in rec, f"dryrun per-device {arch} {shape} "
+                f"{mesh}: {rec.get('error')}")
+        fields = ("dot_flops_per_device", "collectives",
+                  "collective_wire_bytes_per_device")
+        require(all(rec.get(f) is not None for f in fields),
+                f"dryrun per-device {arch} {shape} {mesh}: a null field "
+                f"in {rec}")
+        if "error" in rec:
+            continue
+        kinds = ", ".join(
+            f"{k} {v['count']:.0f} ops / {v['payload']:.4e} B payload / "
+            f"{v['wire']:.4e} B wire" for k, v in
+            sorted(rec["collectives"].items()))
+        log(f"dryrun per-device {arch:12s} {shape:10s} {mesh:10s}: "
+            f"{rec['dot_flops_per_device']:.6e} dot FLOPs, "
+            f"{rec['collective_wire_bytes_per_device']:.6e} wire B a "
+            f"device [{kinds}]; {rec['seconds']:.1f} s host CPU "
+            f"(subprocess; card {smi})")
+    out["wall_s"] = time.perf_counter() - t_start
+    out["waited_s"] = waited
+    log(f"dryrun per-device: {len(PER_DEVICE_CELLS)} cells done "
+        f"{out['wall_s']:.1f} s after their start (host CPU, in parallel "
+        f"with each other), {waited:.1f} s waited for here")
     return out
 
 
@@ -3325,6 +3418,175 @@ def run_sharded_embedding(dev):
     return out
 
 
+def distribute_tree(tree, shardings):
+    """A tree of tensors as DTensors, each by its ``Sharding`` (the same
+    paths): every rank keeps its block, nothing moves."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, shardings[k]) for k, v in tree.items()}
+    return shardings.distribute(tree.detach())
+
+
+def run_dtensor_training(dev, training):
+    """Phase 7's yi-6b step (4 layers, its batches, AdamW) with the
+    parameters and batch as ``param_shardings`` DTensors on a bound 1 x 1
+    ``data x model`` mesh and the training rules' ``constrain`` calls, on
+    the flash kernels: step 0's loss bitwise phase 7's first; the
+    gradients of batch 0 against the plain-tensor kernel path's, leaf by
+    leaf (bitwise, or the first differing leaf named and held within
+    ``LOSS_RTOL`` relative); what ``CommDebugMode`` counted (one rank:
+    nothing crosses a wire)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh, bind_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_paths
+    from repro_torch.parallel.sharding import (Sharding, make_rules,
+                                               param_shardings)
+    from repro_torch.train import (grads_with_accum, make_loss_fn,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=TRAIN_LAYERS)
+    mesh = bind_mesh(Mesh(("data", "model"), (1, 1)), torch.device(dev).type)
+    rules = make_rules(fsdp=cfg.fsdp, shard_kv_heads=cfg.shard_kv_heads,
+                       batch_axes=("data",), with_pod=False, mesh=mesh)
+    shard = param_shardings(lm.model_defs(cfg, 1), rules, mesh)
+    bspec = Sharding(mesh, rules.spec(("batch", "seq")))
+    launches = {k: 0 for k in ops.launch_counts()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dtensor_")
+    out = {}
+    try:
+        make_batch = training_batches(cfg, dev, tmp)
+        batch0 = make_batch(0)
+        params = lm.init_model(cfg, seed=SEED, device=dev)
+        _, _, plain = grads_with_accum(make_loss_fn(cfg), params, batch0,
+                                       TRAIN_ACCUM)
+        plain = tree_paths(plain)
+        dparams = distribute_tree(params, shard)
+        dbatch = {k: bspec.distribute(v) for k, v in batch0.items()}
+        with implicit_replication():
+            _, _, grads = counted(ops, launches, lambda: grads_with_accum(
+                make_loss_fn(cfg, rules=rules), dparams, dbatch,
+                TRAIN_ACCUM))
+        grad_counts = counted.last
+        grads = tree_paths(grads)
+        first, rel = None, 0.0
+        for (path, a), (_, b) in zip(plain, grads):
+            b = b.to_local()
+            if not torch.equal(a, b):
+                if first is None:
+                    first = path
+                rel = max(rel, float((a - b).abs().max()
+                                     / a.abs().max().clamp(min=1e-30)))
+        del plain, grads
+        opt = training_optimizer(cfg)
+        step = make_train_step(cfg, opt, grad_accum=TRAIN_ACCUM, rules=rules)
+        dparams = distribute_tree(params, shard)
+        del params
+        state = opt.init(dparams)
+        with implicit_replication(), CommDebugMode() as comm:
+            _, _, metrics = counted(ops, launches, lambda: step(
+                dparams, state, dbatch, 0))
+        step_counts = counted.last
+        loss = float(metrics["loss"].to_local() if hasattr(
+            metrics["loss"], "to_local") else metrics["loss"])
+        want = training["losses"][0]
+        comm_counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+        out.update(loss=loss, training_loss=want, loss_equal=loss == want,
+                   grads_bitwise=first is None, first_differing_leaf=first,
+                   grad_max_rel_err=rel, comm_counts=comm_counts,
+                   comm_total=comm.get_total_counts(),
+                   grad_launches={k: grad_counts[k] for k in FLASH_KERNELS},
+                   step_launches={k: step_counts[k] for k in FLASH_KERNELS})
+        log("dtensor yi-6b step: " + json.dumps(out))
+        require(loss == want, f"mesh: the DTensor step's loss {loss!r} is "
+                f"not phase 7's first {want!r}")
+        require(rel <= LOSS_RTOL, f"mesh: DTensor gradient {first} off by "
+                f"{rel} relative")
+        require(step_counts["flash_attention_fwd"] > 0
+                and step_counts["flash_attention_bwd"] > 0,
+                f"mesh: the DTensor step launched {step_counts}")
+        del dparams, state, dbatch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_dtensor_ep(dev):
+    """EP MoE at olmoe-1b-7b width with ``param_shardings`` DTensor
+    parameters on a bound 1 x 1 ``data x model`` mesh: ``mlp._ep_params``
+    lays each expert weight out with its experts on the model axis (one
+    rank: the whole weight, its local tensor) and the router replicated,
+    and each of the ``EP_SHARDS`` shards in turn runs ``_ep_shard`` on its
+    experts' block of those local tensors, on the converter kernels:
+    bitwise the same shard with the plain tensors, forward and backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh, bind_mesh
+    from repro_torch.models import mlp
+    from repro_torch.models.common import init_params
+    from repro_torch.parallel.sharding import make_rules, param_shardings
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    mesh = bind_mesh(Mesh(("data", "model"), (1, 1)), torch.device(dev).type)
+    launches = {k: 0 for k in ops.launch_counts()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(mlp.moe_defs(cfg), gen, dev)
+    x = torch.randn(EP_BATCH * EP_SEQ, cfg.d_model, generator=gen,
+                    device=dev)
+    ct = torch.randn(x.shape, generator=gen, device=dev)
+    t = x.shape[0]
+    cap = mlp.moe_capacity(cfg, t)
+    e_loc = cfg.n_experts // EP_SHARDS
+    out = {}
+    for fsdp in (False, True):
+        rules = make_rules(fsdp=fsdp, batch_axes=("data",), with_pod=False,
+                           mesh=mesh)
+        shard = param_shardings(mlp.moe_defs(cfg), rules, mesh)
+        dparams = {k: shard[k].distribute(v).requires_grad_()
+                   for k, v in params.items()}
+        plain = {k: v.detach().requires_grad_() for k, v in params.items()}
+        local, blocks = mlp._ep_params(dparams, rules, "model")
+        equal = []
+
+        def shard_run(p, m, w):
+            g_, i_, _ = mlp._router(p, x, cfg)
+            part, kept = mlp._ep_shard(p, x, g_, i_, cfg, m, EP_SHARDS, cap,
+                                       w=w)
+            return part, kept
+
+        for m in range(EP_SHARDS):
+            w = {k: v[m * e_loc:(m + 1) * e_loc] for k, v in blocks.items()}
+            a, ka = counted(ops, launches, lambda: shard_run(plain, m, None))
+            b, kb = counted(ops, launches, lambda: shard_run(local, m, w))
+            ga = torch.autograd.grad((a * ct).sum(), list(plain.values()),
+                                     allow_unused=True)
+            gb = torch.autograd.grad((b * ct).sum(), list(dparams.values()),
+                                     allow_unused=True)
+            same = torch.equal(a, b) and torch.equal(ka, kb) and all(
+                (u is None and v is None) or torch.equal(
+                    u, v.to_local() if hasattr(v, "to_local") else v)
+                for u, v in zip(ga, gb))
+            equal.append(bool(same))
+        out[f"fsdp {fsdp}"] = equal
+        require(all(equal), f"mesh: DTensor-parameter EP shards differ from "
+                f"the plain tensors' (fsdp {fsdp}): {equal}")
+    out["launches"] = {k: launches[k] for k in MOE_CONVERTERS}
+    log("dtensor ep moe: " + json.dumps(out))
+    del params, x, ct
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def run_mesh_parallel(dev, training):
     """Phase 14: a world-size-1 nccl group from a file store, then
     ``int8_psum``, the compressed step, EP MoE and the sharded
@@ -3367,6 +3629,20 @@ def run_mesh_parallel(dev, training):
         t0 = time.perf_counter()
         out["embedding"] = run_sharded_embedding(dev)
         out["embedding_s"] = time.perf_counter() - t0
+        # DTensor parameters on a bound 1 x 1 mesh (A9c), the launches
+        # they add counted apart
+        t0 = time.perf_counter()
+        out["dtensor_training"], counts = run_dtensor_training(dev, training)
+        for k, v in counts.items():
+            launches[k] += v
+        out["dtensor_ep"], counts2 = run_dtensor_ep(dev)
+        for k, v in counts2.items():
+            launches[k] += v
+        out["dtensor_launches"] = {k: counts[k] + counts2[k]
+                                   for k in FLASH_KERNELS + MOE_CONVERTERS}
+        out["dtensor_s"] = time.perf_counter() - t0
+        log("mesh-parallel DTensor runs: launches added " + json.dumps(
+            out["dtensor_launches"]) + f", {out['dtensor_s']:.1f} s")
     finally:
         collectives.destroy_group()
         shutil.rmtree(tmp, ignore_errors=True)

@@ -11,17 +11,23 @@ with the same axis names, over the process group of
 :mod:`repro_torch.parallel.collectives`: rank *r* sits at the row-major
 coordinates of *r*, as device *r* does in the reference's
 ``Mesh(np.array(jax.devices()).reshape(sizes), names)``.
+
+:func:`fake_group` starts a fake process group of a mesh's size in this
+process (rank 0; its collectives move nothing) and binds the mesh to it
+on ``cpu``, where ``meta`` DTensors live: the dry run's per-device
+analysis runs a 256- or 512-rank step on one host that way.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
-__all__ = ["Mesh", "bind_mesh", "has_pod_axis", "make_host_mesh",
-           "make_production_mesh", "mesh_axes"]
+__all__ = ["Mesh", "bind_mesh", "fake_group", "has_pod_axis",
+           "make_host_mesh", "make_production_mesh", "mesh_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +87,31 @@ def bind_mesh(mesh: Mesh, device_type: str = "cuda") -> Mesh:
     dm = init_device_mesh(device_type, mesh.axis_sizes,
                           mesh_dim_names=mesh.axis_names)
     return dataclasses.replace(mesh, device_mesh=dm)
+
+
+@contextlib.contextmanager
+def fake_group(mesh: Mesh) -> Iterator[Mesh]:
+    """``mesh`` bound on ``cpu`` to a fake process group of ``mesh.size``
+    ranks, this process rank 0 (``torch.distributed``'s ``fake`` backend:
+    every collective returns at once and moves nothing), for the span of
+    the ``with``; the group is destroyed on exit.  Raises if this process
+    already has a process group: a fake one must run in a process of its
+    own."""
+    import torch.distributed as dist
+    # Registers the "fake" backend.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from ..parallel import collectives
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists in this process: run "
+                           "the fake group in a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield bind_mesh(mesh, "cpu")
+    finally:
+        collectives.destroy_group()
 
 
 def mesh_axes(mesh: Mesh) -> Tuple[str, ...]:

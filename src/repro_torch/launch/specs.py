@@ -40,6 +40,7 @@ __all__ = [
     "batch_specs",
     "build_cell",
     "cache_structs",
+    "dtensor_args",
     "opt_specs",
     "param_structs",
     "rules_for",
@@ -205,7 +206,8 @@ def build_cell(arch: str, shape_name: str, mesh, tp: int = 16, *,
         dp = math.prod(mesh.shape[a] for a in ("pod", "data")
                        if a in mesh.axis_names)
         accum = max(1, max(1, shape.global_batch // dp) // 2)
-        step = make_train_step(cfg, opt, grad_accum=accum, impl="ref")
+        step = make_train_step(cfg, opt, grad_accum=accum, impl="ref",
+                               rules=rules)
         return Cell(arch, shape_name, mesh, step, (p, o, b, scalar),
                     (p_spec, o_spec, b_spec, ()),
                     ("params", "opt_state", "batch", "scalars"),
@@ -222,8 +224,10 @@ def build_cell(arch: str, shape_name: str, mesh, tp: int = 16, *,
         def prefill_step(params, batch, cache):
             if cfg.prefill_chunk:
                 return lm.prefill_chunked(params, batch, cache, cfg,
-                                          cfg.prefill_chunk, impl="ref")
-            return lm.prefill(params, batch, cache, cfg, impl="ref")
+                                          cfg.prefill_chunk, impl="ref",
+                                          rules=rules)
+            return lm.prefill(params, batch, cache, cfg, impl="ref",
+                              rules=rules)
 
         return Cell(arch, shape_name, mesh, prefill_step, (p, b, c),
                     (p_spec, b_spec, c_spec), ("params", "batch", "cache"))
@@ -232,8 +236,42 @@ def build_cell(arch: str, shape_name: str, mesh, tp: int = 16, *,
                          device=dev)
 
     def decode(params, tokens, cache, pos):
-        return lm.decode_step(params, tokens, cache, pos, cfg, impl="ref")
+        return lm.decode_step(params, tokens, cache, pos, cfg, impl="ref",
+                              rules=rules)
 
     return Cell(arch, shape_name, mesh, decode, (p, tokens, c, scalar),
                 (p_spec, rules.spec(("batch", "seq")), c_spec, ()),
                 ("params", "tokens", "cache", "scalars"))
+
+
+def dtensor_args(cell: Cell) -> list:
+    """The cell's arguments as ``meta`` DTensors on its bound mesh
+    (``launch.mesh.fake_group``), ready for ``cell.step_fn``: each leaf
+    its per-device block (``sharding.shard_shape``) under the placements
+    of its spec (``sharding.placements``, fsdp's ``_StridedShard``
+    included), so each holds the bytes ``dryrun.leaf_records`` gives it;
+    a ``scalars`` argument is the Python int 0."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import placements, shard_shape
+
+    mesh = cell.mesh
+    if getattr(mesh, "device_mesh", None) is None:
+        raise ValueError(f"cell {cell.arch} {cell.shape}: its mesh is not "
+                         f"bound to a process group")
+
+    def one(t, spec):
+        block = shard_shape(t.shape, spec, mesh)
+        local = torch.empty(block, dtype=t.dtype, device="meta")
+        return DTensor.from_local(
+            local, mesh.device_mesh, placements(spec, mesh),
+            run_check=False, shape=t.shape,
+            stride=torch.empty(t.shape, device="meta").stride())
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            return {k: walk(v, spec[k]) for k, v in t.items()}
+        return one(t, spec)
+
+    return [0 if g == "scalars" else walk(a, sp)
+            for g, a, sp in zip(cell.groups, cell.args, cell.specs)]

@@ -177,23 +177,82 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _xent_chunk(xc, w_out, lc, mc, n_valid: Optional[int]):
+LOGIT_DIMS = ("act_batch", None, "vocab")
+
+
+def _xent_chunk(xc, w_out, lc, mc, n_valid: Optional[int], rules=None):
     """Summed masked NLL and summed mask of one (B, chunk) slice."""
-    logits = (xc @ w_out).float()
-    if n_valid is not None and n_valid < logits.shape[-1]:
-        pad = torch.arange(logits.shape[-1], device=logits.device) >= n_valid
-        logits = logits.masked_fill(pad, -1e30)
+    from ..parallel.sharding import constrain, is_dtensor
+
+    logits = constrain((xc @ w_out).float(), rules, LOGIT_DIMS)
+    if is_dtensor(logits) and logits.device_mesh.size() > 1:
+        return _xent_local(logits, lc, mc, n_valid, rules)
+    logits = _mask_padded(logits, n_valid, logits.shape[-1])
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, lc[..., None].long())[..., 0]
     mc = mc.float()
     return ((lse - gold) * mc).sum(), mc.sum()
 
 
+def _mask_padded(logits, n_valid: Optional[int], vocab: int, lo: int = 0):
+    """``logits`` (..., V_block), the block of a ``vocab``-wide row that
+    starts at class ``lo``, with the padded classes (``n_valid`` and up)
+    at -1e30."""
+    if n_valid is None or n_valid >= vocab:
+        return logits
+    ids = lo + torch.arange(logits.shape[-1], device=logits.device)
+    return logits.masked_fill(ids >= n_valid, -1e30)
+
+
+def _xent_local(logits, lc, mc, n_valid: Optional[int], rules):
+    """:func:`_xent_chunk`'s sums on vocab-sharded DTensor logits (B, C,
+    V): each rank reduces its block of the vocab, and sums over the vocab
+    axis give the row maxima, the softmax denominators and the gold
+    logits, as XLA partitions the reference's reductions; sums over the
+    batch axes give the two totals, replicated."""
+    import torch.distributed as dist
+
+    from ..parallel import collectives
+    from ..parallel.sharding import local_call, mesh_axis_size
+
+    mesh = rules.mesh
+    vocab_ax, batch_ax = rules.axis("vocab"), rules.axis("act_batch")
+    n_v = mesh_axis_size(mesh, vocab_ax)
+    v_group = collectives.axis_group(mesh, vocab_ax) if n_v > 1 else None
+    b_group = (collectives.axis_group(mesh, batch_ax)
+               if mesh_axis_size(mesh, batch_ax) > 1 else None)
+    v_lo = (collectives.axis_index(mesh, vocab_ax) * (logits.shape[-1] // n_v)
+            if n_v > 1 else 0)
+
+    def vsum(t):
+        return collectives.sum_forward(t, v_group) if v_group else t
+
+    def fn(lg, lab, msk):
+        lg = _mask_padded(lg, n_valid, logits.shape[-1], v_lo)
+        m = lg.detach().amax(dim=-1, keepdim=True)
+        if v_group is not None:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=v_group)
+        lse = m[..., 0] + torch.log(vsum(torch.exp(lg - m).sum(-1)))
+        loc = lab.long() - v_lo
+        ok = (loc >= 0) & (loc < lg.shape[-1])
+        gold = lg.gather(-1, loc.clamp(0, lg.shape[-1] - 1)[..., None])
+        gold = vsum(torch.where(ok, gold[..., 0], torch.zeros_like(lse)))
+        msk = msk.float()
+        out = torch.stack([((lse - gold) * msk).sum(), msk.sum()])
+        return collectives.sum_forward(out, b_group) if b_group else out
+
+    bspec = (batch_ax, None)
+    out = local_call(fn, mesh, (logits, lc, mc),
+                     (rules.spec(LOGIT_DIMS), bspec, bspec),
+                     (None,) * len(mesh.axis_names))
+    return out[0], out[1]
+
+
 def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
                          labels: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
                          seq_chunk: int = 512,
-                         n_valid: Optional[int] = None
+                         n_valid: Optional[int] = None, rules=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CE of ``softmax(x @ w_out)`` against labels over seq chunks.
 
@@ -202,7 +261,10 @@ def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
     chunk runs inside :func:`torch.utils.checkpoint.checkpoint`, so its
     logits are recomputed in the backward instead of kept.  ``n_valid``:
     the real vocab when V is padded (padded classes masked).  Returns
-    ``(loss, total weight)``.
+    ``(loss, total weight)``.  ``rules`` lays the logits out as
+    ``(act_batch, None, vocab)`` (the reference's ``logit_spec``); on
+    DTensors over more than one rank each rank reduces its block
+    (:func:`_xent_local`).
     """
     b, s, _ = x.shape
     seq_chunk = min(seq_chunk, s)
@@ -215,7 +277,7 @@ def chunked_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, seq_chunk):
         part = (x[:, i:i + seq_chunk], w_out, labels[:, i:i + seq_chunk],
-                mask[:, i:i + seq_chunk], n_valid)
+                mask[:, i:i + seq_chunk], n_valid, rules)
         if torch.is_grad_enabled():
             nll, m = checkpoint(_xent_chunk, *part, use_reentrant=False)
         else:

@@ -45,6 +45,7 @@ from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import rwkv6 as rwkv_mod
 from ..parallel import collectives
+from ..parallel.sharding import constrain, gather_fsdp, is_dtensor
 from .common import (Param, cast_tree, chunked_softmax_xent, init_params,
                      map_tree, rms_norm, stack_layer_defs, tree_paths)
 from .mlp import MLP_WEIGHT_NAMES, mlp_defs, mlp_fwd, moe_defs, moe_fwd
@@ -234,7 +235,8 @@ def _ffn(lp, x: torch.Tensor, cfg: ArchConfig, impl: str, rules=None
     """The block's MLP or MoE on ``x`` (normed): (output, aux loss)."""
     if cfg.n_experts:
         return moe_fwd(lp["moe"], x, cfg, impl=impl, rules=rules)
-    return mlp_fwd(lp["mlp"], x, cfg), x.new_zeros((), dtype=torch.float32)
+    return (mlp_fwd(lp["mlp"], x, cfg, rules),
+            x.new_zeros((), dtype=torch.float32))
 
 
 def _block_train(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
@@ -242,14 +244,17 @@ def _block_train(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux loss)."""
     if cfg.ssm == "rwkv6":
-        x, _ = rwkv_mod.rwkv_block(lp, x, cfg, lp, chunk=rwkv_mod.CHUNK)
+        x, _ = rwkv_mod.rwkv_block(lp, x, cfg, lp, chunk=rwkv_mod.CHUNK,
+                                   rules=rules)
         return x, x.new_zeros((), dtype=torch.float32)
     if cfg.ssm == "hymba":
         x = x + mamba_mod.hymba_block_fwd(lp["hymba"], rms_norm(x, lp["ln1"]),
-                                          cfg, is_global, positions, impl)
+                                          cfg, is_global, positions, impl,
+                                          rules)
     else:
         x = x + attn_mod.attention_fwd(lp["attn"], rms_norm(x, lp["ln1"]),
-                                       cfg, is_global, positions, impl=impl)
+                                       cfg, is_global, positions, impl=impl,
+                                       rules=rules)
     m, aux = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl, rules)
     return x + m, aux
 
@@ -259,31 +264,36 @@ def _block_prefill(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
     """Returns (x, the layer's cache: the same tensors written in place,
     or a recurrent state to be written)."""
     if cfg.ssm == "rwkv6":
-        return rwkv_mod.rwkv_block(lp, x, cfg, lp, chunk=rwkv_mod.CHUNK)
+        return rwkv_mod.rwkv_block(lp, x, cfg, lp, chunk=rwkv_mod.CHUNK,
+                                   rules=rules)
     if cfg.ssm == "hymba":
         a, cache = mamba_mod.hymba_block_prefill(
-            lp["hymba"], rms_norm(x, lp["ln1"]), cfg, is_global, cache)
+            lp["hymba"], rms_norm(x, lp["ln1"]), cfg, is_global, cache,
+            rules)
     else:
         a, cache = attn_mod.attention_prefill(
-            lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache)
+            lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache,
+            rules)
     x = x + a
     m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl, rules)
     return x + m, cache
 
 
 def _block_decode(x: torch.Tensor, lp, cfg: ArchConfig, is_global: bool,
-                  cache, pos: int, impl: str):
+                  cache, pos: int, impl: str, rules=None):
     if cfg.ssm == "rwkv6":
         return rwkv_mod.rwkv_block(lp, x, cfg, lp, state=cache,
-                                   chunk=rwkv_mod.CHUNK)
+                                   chunk=rwkv_mod.CHUNK, rules=rules)
     if cfg.ssm == "hymba":
         a, cache = mamba_mod.hymba_block_decode(
-            lp["hymba"], rms_norm(x, lp["ln1"]), cfg, is_global, cache, pos)
+            lp["hymba"], rms_norm(x, lp["ln1"]), cfg, is_global, cache, pos,
+            rules)
     else:
         a, cache = attn_mod.attention_decode(
-            lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache, pos)
+            lp["attn"], rms_norm(x, lp["ln1"]), cfg, is_global, cache, pos,
+            rules)
     x = x + a
-    m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl)
+    m, _ = _ffn(lp, rms_norm(x, lp["ln2"]), cfg, impl, rules)
     return x + m, cache
 
 
@@ -302,15 +312,17 @@ def _embed_shard_bwd(ids: torch.Tensor, g: torch.Tensor, lo: int, vs: int,
                      dt: torch.dtype) -> torch.Tensor:
     """The gradient (vs, D) in ``dt`` of the shard of rows [lo, lo + vs)
     from the cotangent ``g`` (..., D) of the rows of ``ids``: a local
-    scatter-add of the entries the shard owns, by ``index_put_`` with
-    accumulate as the unsharded gather's backward, so each row sums the
-    same terms in the same order and the result is that gradient's rows,
-    bit for bit, on the card too."""
+    scatter-add, by ``index_put_`` with accumulate as the unsharded
+    gather's backward, of the entries the shard owns and zeros for the
+    others (the reference's masked form): each row sums the same terms in
+    the same order, and zeros, so the result is that gradient's rows, bit
+    for bit, on the card too."""
     loc = ids.long().reshape(-1) - lo
     ok = (loc >= 0) & (loc < vs)
     gt = torch.zeros((vs, g.shape[-1]), dtype=dt, device=g.device)
-    return gt.index_put_((loc[ok],), g.reshape(-1, g.shape[-1])[ok].to(dt),
-                         accumulate=True)
+    g = g.reshape(-1, g.shape[-1]).to(dt)
+    return gt.index_put_((loc.clamp(0, vs - 1),),
+                         torch.where(ok[:, None], g, 0.0), accumulate=True)
 
 
 class _ShardedEmbed(torch.autograd.Function):
@@ -320,25 +332,31 @@ class _ShardedEmbed(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tbl, ids, lo, vocab_group, batch_group, n_batch,
-                batch_index, psum_dt, dt):
+                batch_index, psum_dt, dt, rows_only=False):
         ctx.save_for_backward(ids)
         ctx.lo, ctx.vs, ctx.tdtype = lo, tbl.shape[0], tbl.dtype
         ctx.batch_group, ctx.n_batch, ctx.batch_index = (
             batch_group, n_batch, batch_index)
-        ctx.psum_dt = psum_dt
+        ctx.psum_dt, ctx.rows_only = psum_dt, rows_only
         x = _embed_shard_fwd(tbl, ids, lo, psum_dt)
-        return collectives.psum(x, vocab_group).to(dt)
+        x = collectives.psum(x, vocab_group).to(dt)
+        return x[_batch_rows(ctx, ids)] if rows_only else x
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        b = ids.shape[0] // ctx.n_batch
-        rows = slice(ctx.batch_index * b, (ctx.batch_index + 1) * b)
-        gt = _embed_shard_bwd(ids[rows], g[rows], ctx.lo, ctx.vs,
-                              ctx.psum_dt)
+        rows = _batch_rows(ctx, ids)
+        gt = _embed_shard_bwd(ids[rows], g if ctx.rows_only else g[rows],
+                              ctx.lo, ctx.vs, ctx.psum_dt)
         if ctx.batch_group is not None:
             gt = collectives.psum(gt, ctx.batch_group)
-        return (gt.to(ctx.tdtype),) + (None,) * 8
+        return (gt.to(ctx.tdtype),) + (None,) * 9
+
+
+def _batch_rows(ctx, ids: torch.Tensor) -> slice:
+    """This rank's block of the batch's rows."""
+    b = ids.shape[0] // ctx.n_batch
+    return slice(ctx.batch_index * b, (ctx.batch_index + 1) * b)
 
 
 def _embed_lookup(table, ids: torch.Tensor, rules, dt: torch.dtype
@@ -353,22 +371,57 @@ def _embed_lookup(table, ids: torch.Tensor, rules, dt: torch.dtype
     scatter-adds this rank's block of the batch (by its index along the
     batch axes) into its rows and sums over the batch axes only.  Sums
     run in float32 on the CPU and in ``dt`` on the card, as the
-    reference's ``psum_dt``."""
+    reference's ``psum_dt``.
+
+    A DTensor table (``param_shardings``) is laid out with its vocab on
+    the vocab axis and every other dim whole (under fsdp d_model is
+    gathered), and the shard gathers from its local block.  DTensor ids
+    (the batch sharded) are gathered whole, as the reference's forward
+    takes them, and the result is this rank's rows of the batch, a
+    DTensor laid out as ``act_batch``; plain ids give the plain result.
+    """
     ax = rules.axis("vocab") if rules is not None else None
     n = rules.axis_size("vocab") if rules is not None else 1
-    if rules is None or rules.mesh is None or not isinstance(ax, str) \
+    if rules is None or not rules.bound or not isinstance(ax, str) \
             or n == 1:
         # The gather's backward is index_put_ with accumulate, which
         # PyTorch runs on CUDA by sorting the indices and summing each
         # row's repeats in order, with no atomics: a step's gradients
         # repeat bit for bit, which the resume check of chip_smoke.py
         # relies on and checks.
+        if is_dtensor(table) or is_dtensor(ids):
+            # each rank gathers its batch block's rows from the whole
+            # table; the table's gradient sums over the batch shards
+            from ..parallel.sharding import local_call, partial_on
+
+            rows = rules.spec(("act_batch", "seq"))
+            return local_call(lambda t, i: t[i.long()].to(dt), rules.mesh,
+                              (table, ids), ((None, None), rows),
+                              rules.spec(("act_batch", "seq", "d_model")),
+                              (partial_on((None, None), rules.axis("batch"),
+                                          rules.mesh), None))
         return table[ids.long()].to(dt)
     mesh = rules.mesh
     vs = table.shape[0] // n
     m = collectives.axis_index(mesh, ax)
     lo = m * vs
-    tbl = table[lo:lo + vs]
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate, Shard
+
+        want = tuple(Shard(0) if a == ax else Replicate()
+                     for a in mesh.axis_names)
+        if tuple(table.placements) != want:
+            table = table.redistribute(mesh.device_mesh, want)
+        tbl = table.to_local()
+    else:
+        tbl = table[lo:lo + vs]
+    dtensor_ids = is_dtensor(ids)
+    if dtensor_ids:
+        from torch.distributed.tensor import Replicate
+
+        rep = (Replicate(),) * len(mesh.axis_names)
+        ids = (ids if tuple(ids.placements) == rep
+               else ids.redistribute(mesh.device_mesh, rep)).to_local()
     batch_ax = rules.axis("batch")
     if batch_ax is None:
         batch_group, n_batch, batch_index = None, 1, 0
@@ -376,10 +429,19 @@ def _embed_lookup(table, ids: torch.Tensor, rules, dt: torch.dtype
         batch_group = collectives.axis_group(mesh, batch_ax)
         n_batch = collectives.axis_size(mesh, batch_ax)
         batch_index = collectives.axis_index(mesh, batch_ax)
-    psum_dt = torch.float32 if ids.device.type == "cpu" else dt
-    return _ShardedEmbed.apply(tbl, ids, lo, collectives.axis_group(mesh, ax),
-                               batch_group, n_batch, batch_index, psum_dt,
-                               dt)
+    psum_dt = torch.float32 if ids.device.type != "cuda" else dt
+    out = _ShardedEmbed.apply(tbl, ids, lo, collectives.axis_group(mesh, ax),
+                              batch_group, n_batch, batch_index, psum_dt, dt,
+                              dtensor_ids)
+    if dtensor_ids:
+        from torch.distributed.tensor import DTensor
+
+        from ..parallel.sharding import placements
+
+        out = DTensor.from_local(out, mesh.device_mesh, placements(
+            rules.spec(("act_batch", "seq", "d_model")), mesh),
+            run_check=False)
+    return out
 
 
 def embed_tokens(params, batch, cfg: ArchConfig, rules=None) -> torch.Tensor:
@@ -399,7 +461,8 @@ def embed_tokens(params, batch, cfg: ArchConfig, rules=None) -> torch.Tensor:
         if cfg.name.startswith("gemma"):
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype)
         parts.append(x)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return constrain(x, rules, ("act_batch", "seq", "d_model"))
 
 
 def output_weight(params, cfg: ArchConfig) -> torch.Tensor:
@@ -427,8 +490,9 @@ def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda",
     flags = global_flags(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = gather_fsdp(params["layers"], rules)
     for i in range(cfg.n_layers):
-        lp = map_tree(lambda t: t[i], params["layers"])
+        lp = map_tree(lambda t: t[i], layers)
         args = (x, lp, cfg, bool(flags[i]), positions, impl, rules)
         x, a = (checkpoint(_block_train, *args, use_reentrant=False) if remat
                 else _block_train(*args))
@@ -439,7 +503,7 @@ def train_loss(params, batch, cfg: ArchConfig, impl: str = "cuda",
     if x.shape[1] != tgt.shape[1]:  # a front-end prefix was prepended
         x = x[:, x.shape[1] - tgt.shape[1]:]
     loss, cnt = chunked_softmax_xent(x, w_out, tgt, batch.get("mask"),
-                                     n_valid=cfg.vocab)
+                                     n_valid=cfg.vocab, rules=rules)
     total = loss + cfg.router_aux_coef * aux / cfg.n_layers
     return total, {"ce_loss": loss, "aux_loss": aux, "tokens": cnt}
 
@@ -497,12 +561,15 @@ def _write_back(dst, src) -> None:
         dst.copy_(src)
 
 
-def _run_with_cache(params, x: torch.Tensor, cache, cfg: ArchConfig, block):
+def _run_with_cache(params, x: torch.Tensor, cache, cfg: ArchConfig, block,
+                    rules=None):
     """The layers in order, each on its slice of the stacked cache
-    (``block(x, lp, is_global, layer_cache)``), written in place."""
+    (``block(x, lp, is_global, layer_cache)``), written in place; under
+    ``rules`` DTensor layers' fsdp shards are gathered first."""
     flags = global_flags(cfg)
+    layers = gather_fsdp(params["layers"], rules)
     for i in range(cfg.n_layers):
-        lp = map_tree(lambda t: t[i], params["layers"])
+        lp = map_tree(lambda t: t[i], layers)
         lc = map_tree(lambda c: c[i], cache)
         x, new = block(x, lp, bool(flags[i]), lc)
         _write_back(lc, new)
@@ -525,32 +592,34 @@ def prefill(params, batch, cache, cfg: ArchConfig, impl: str = "cuda",
     x, cache = _run_with_cache(
         params, x, cache, cfg,
         lambda x_, lp, g, lc: _block_prefill(x_, lp, cfg, g, lc, impl,
-                                             rules))
+                                             rules), rules)
     return _logits(params, x[:, -1:], cfg), cache
 
 
 def decode_step(params, tokens: torch.Tensor, cache, pos: int,
-                cfg: ArchConfig, impl: str = "cuda"):
+                cfg: ArchConfig, impl: str = "cuda", rules=None):
     """One decode step: tokens (B, 1) at position ``pos`` → (logits (B, V),
-    cache)."""
-    logits, cache = extend_step(params, tokens, cache, pos, cfg, impl)
+    cache).  ``rules`` as in :func:`prefill`."""
+    logits, cache = extend_step(params, tokens, cache, pos, cfg, impl,
+                                rules)
     return logits[:, 0], cache
 
 
 def extend_step(params, tokens: torch.Tensor, cache, pos: int,
-                cfg: ArchConfig, impl: str = "cuda"):
+                cfg: ArchConfig, impl: str = "cuda", rules=None):
     """A chunk of tokens (B, C) at positions [pos, pos + C) against the
     cache (chunked prefill): the decode attention takes any C.  Returns
     (last-token logits (B, 1, V), cache)."""
-    x = embed_tokens(params, {"tokens": tokens}, cfg)
+    x = embed_tokens(params, {"tokens": tokens}, cfg, rules)
     x, cache = _run_with_cache(
         params, x, cache, cfg,
-        lambda x_, lp, g, lc: _block_decode(x_, lp, cfg, g, lc, pos, impl))
+        lambda x_, lp, g, lc: _block_decode(x_, lp, cfg, g, lc, pos, impl,
+                                            rules), rules)
     return _logits(params, x[:, -1:], cfg), cache
 
 
 def prefill_chunked(params, batch, cache, cfg: ArchConfig, chunk: int,
-                    impl: str = "cuda"):
+                    impl: str = "cuda", rules=None):
     """Prefill in fixed-size chunks through :func:`extend_step`: the
     attention scores scale with ``chunk``, and MoE capacity is per chunk,
     as in continuous-batching serving.  Returns (last-token logits
@@ -563,5 +632,5 @@ def prefill_chunked(params, batch, cache, cfg: ArchConfig, chunk: int,
     logits: Optional[torch.Tensor] = None
     for i in range(0, s, chunk):
         logits, cache = extend_step(params, tokens[:, i:i + chunk], cache, i,
-                                    cfg, impl)
+                                    cfg, impl, rules)
     return logits, cache

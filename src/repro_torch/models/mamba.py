@@ -30,7 +30,8 @@ reference: the projections and the causal conv in ``cfg.compute_dtype``,
 Hymba (arXiv:2411.13676): attention heads and a Mamba head run in
 parallel on the same normed input; each path is output-normed, then the
 two are averaged.  Meta-tokens are out of scope, as in the reference.
-Sharding constraints are left out.
+``rules`` (on a bound mesh, DTensors) constrain the activations where the
+reference does, and the scan runs on each rank's batch and d_inner block.
 
 The SSM functions take the float32 parameters ``p`` and optionally
 ``pf``, the same tree cast to the compute dtype once (as in
@@ -45,6 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import (constrain, is_dtensor, local_call,
+                                 partial_on)
 from .attention import (attention_decode, attention_defs, attention_fwd,
                         attention_prefill)
 from .common import Param, cast_tree, decayed_cumsum, rms_norm
@@ -261,9 +264,34 @@ def selective_scan(delta: torch.Tensor, dx: torch.Tensor, bm: torch.Tensor,
     return _SelectiveScan.apply(delta, dx, bm, cm, a, h0, chunk)
 
 
+def _scan_local(delta, dx, bm, cm, a, h0, chunk, rules):
+    """:func:`selective_scan` on DTensors: each rank scans its batch block
+    and its d_inner block (``d_ff``); the products over d_inner in the
+    backward give partial gradients of B and C, and each batch block its
+    share of A's.  A zero state (``h0`` None) is made on the rank."""
+    mesh = rules.mesh
+    tok = (None, rules.axis("act_batch"), rules.axis("d_ff"))
+    bc = (None, rules.axis("act_batch"), None)
+    st = (rules.axis("act_batch"), rules.axis("d_ff"), None)
+    grad_bc = partial_on(bc, rules.axis("d_ff"), mesh)
+    # A is the same on every batch shard: its gradient sums over them
+    grad_a = partial_on((rules.axis("d_ff"), None), rules.axis("act_batch"),
+                        mesh)
+
+    def fn(delta_, dx_, bm_, cm_, a_, h_):
+        if h_ is None:
+            h_ = torch.zeros(delta_.shape[1:] + a_.shape[1:],
+                             device=delta_.device)
+        return selective_scan(delta_, dx_, bm_, cm_, a_, h_, chunk)
+
+    return local_call(fn, mesh, (delta, dx, bm, cm, a, h0),
+                      (tok, tok, bc, bc, (rules.axis("d_ff"), None), st),
+                      [tok, st], (None, None, grad_bc, grad_bc, grad_a, None))
+
+
 def mamba_fwd(p, x: torch.Tensor, cfg: ArchConfig,
               state: Optional[Dict[str, torch.Tensor]] = None, pf=None,
-              chunk: Optional[int] = None):
+              chunk: Optional[int] = None, rules=None):
     """x (B, T, D) → (y (B, T, D), ``{'h', 'conv'}``).  ``chunk`` picks the
     form (module doc): None steps token by token, an int solves chunks of
     that many tokens (the last may be shorter)."""
@@ -271,31 +299,50 @@ def mamba_fwd(p, x: torch.Tensor, cfg: ArchConfig,
     pf = pf if pf is not None else cast_tree(p, dt_)
     b, t, _ = x.shape
     di, r, n = mamba_dims(cfg)
-    xz = x @ pf["w_in"]
+    # (on DTensors the projection's gradient comes back in its own
+    # layout, so each rank forms its block of w_in's gradient)
+    xz = constrain(x @ pf["w_in"], rules, ("act_batch", "seq", "d_ff"))
     xm, z = torch.chunk(xz, 2, dim=-1)
+    xm = constrain(xm, rules, ("act_batch", "seq", "d_ff"))
     tail = None if state is None else state["conv"]
     xm, new_tail = _causal_conv(xm, pf["conv_w"], pf["conv_b"], tail)
     xm = F.silu(xm)
 
     a = -torch.exp(p["a_log"].float())                       # (di, N)
-    h0 = (torch.zeros((b, di, n), device=x.device) if state is None
-          else state["h"])
-    xt = xm.transpose(0, 1)                                  # (T, B, di)
-    proj = xt @ pf["w_x"]                                    # (T, B, r+2N)
-    dt_r, bm, cm = torch.split(proj, [r, n, n], dim=-1)
-    delta = F.softplus((dt_r @ pf["w_dt"]).float() + p["b_dt"].float())
-    dx, bm, cm = delta * xt.float(), bm.float(), cm.float()
-    if chunk is None:
-        da = torch.exp(delta[..., None] * a)                 # (T, B, di, N)
-        db = dx[..., None] * bm[:, :, None, :]
-        hs, h_final = decayed_cumsum(da, db, h0)
-        y = torch.einsum("tbdn,tbn->tbd", hs, cm)
+    if is_dtensor(xm):
+        # The projections token-major (B, T, ...), then to (T, B, ...): a
+        # product over a transposed batch-sharded view would flatten it
+        # into a layout DTensor cannot split back.  (The plain path keeps
+        # the time-major products, whose backward rounds differently.)
+        proj = constrain(xm @ pf["w_x"], rules, ("act_batch", "seq", None))
+        dt_r, bm, cm = torch.split(proj, [r, n, n], dim=-1)
+        delta = F.softplus((dt_r @ pf["w_dt"]).float() + p["b_dt"].float())
+        dx = delta * xm.float()
+        delta, dx, bm, cm = (u.transpose(0, 1) for u in (delta, dx,
+                                                          bm.float(),
+                                                          cm.float()))
     else:
-        y, h_final = selective_scan(delta, dx, bm, cm, a, h0, chunk)
+        xt = xm.transpose(0, 1)                              # (T, B, di)
+        proj = xt @ pf["w_x"]                                # (T, B, r+2N)
+        dt_r, bm, cm = torch.split(proj, [r, n, n], dim=-1)
+        delta = F.softplus((dt_r @ pf["w_dt"]).float() + p["b_dt"].float())
+        dx, bm, cm = delta * xt.float(), bm.float(), cm.float()
+    h0 = None if state is None else state["h"]
+    if is_dtensor(delta):
+        y, h_final = _scan_local(delta, dx, bm, cm, a, h0, chunk or 1, rules)
+    else:
+        h0 = torch.zeros((b, di, n), device=x.device) if h0 is None else h0
+        if chunk is None:
+            da = torch.exp(delta[..., None] * a)             # (T, B, di, N)
+            db = dx[..., None] * bm[:, :, None, :]
+            hs, h_final = decayed_cumsum(da, db, h0)
+            y = torch.einsum("tbdn,tbn->tbd", hs, cm)
+        else:
+            y, h_final = selective_scan(delta, dx, bm, cm, a, h0, chunk)
     y = y.transpose(0, 1).to(dt_)
     y = y + pf["d_skip"] * xm
     y = y * F.silu(z)
-    out = y @ pf["w_out"]
+    out = constrain(y @ pf["w_out"], rules, ("act_batch", "seq", "d_model"))
     return out, {"h": h_final, "conv": new_tail}
 
 
@@ -345,32 +392,32 @@ def hymba_mix(p, attn_out: torch.Tensor, mamba_out: torch.Tensor,
 
 
 def hymba_block_fwd(p, x: torch.Tensor, cfg: ArchConfig, is_global: bool,
-                    positions: torch.Tensor, impl: str = "cuda"
+                    positions: torch.Tensor, impl: str = "cuda", rules=None
                     ) -> torch.Tensor:
     """Train / no-cache path; the attention through the flash kernels
     (``impl`` as in ``attention_fwd``)."""
     attn_out = attention_fwd(p["attn"], x, cfg, is_global, positions,
-                             impl=impl)
-    mamba_out, _ = mamba_fwd(p["mamba"], x, cfg, chunk=CHUNK)
+                             impl=impl, rules=rules)
+    mamba_out, _ = mamba_fwd(p["mamba"], x, cfg, chunk=CHUNK, rules=rules)
     return hymba_mix(p, attn_out, mamba_out, cfg)
 
 
 def hymba_block_prefill(p, x: torch.Tensor, cfg: ArchConfig,
-                        is_global: bool, cache):
+                        is_global: bool, cache, rules=None):
     """Prefill from an empty state: the attention fills ``cache['kv']`` in
     place; returns (out, ``{'kv', 'ssm'}``) with the new SSM state."""
     attn_out, kv = attention_prefill(p["attn"], x, cfg, is_global,
-                                     cache["kv"])
-    mamba_out, ssm = mamba_fwd(p["mamba"], x, cfg, chunk=CHUNK)
+                                     cache["kv"], rules)
+    mamba_out, ssm = mamba_fwd(p["mamba"], x, cfg, chunk=CHUNK, rules=rules)
     return hymba_mix(p, attn_out, mamba_out, cfg), {"kv": kv, "ssm": ssm}
 
 
 def hymba_block_decode(p, x: torch.Tensor, cfg: ArchConfig, is_global: bool,
-                       cache, pos: int):
+                       cache, pos: int, rules=None):
     """Decode (C = 1) or extend (C > 1) from the cache's KV and SSM state;
     returns (out, ``{'kv', 'ssm'}``)."""
     attn_out, kv = attention_decode(p["attn"], x, cfg, is_global,
-                                    cache["kv"], pos)
+                                    cache["kv"], pos, rules)
     mamba_out, ssm = mamba_fwd(p["mamba"], x, cfg, state=cache["ssm"],
-                               chunk=CHUNK)
+                               chunk=CHUNK, rules=rules)
     return hymba_mix(p, attn_out, mamba_out, cfg), {"kv": kv, "ssm": ssm}

@@ -30,6 +30,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from ..parallel import collectives
+from ..parallel.sharding import constrain, is_dtensor
 from .common import ACTIVATIONS, Param
 
 __all__ = ["MLP_WEIGHT_NAMES", "mlp_defs", "mlp_fwd", "moe_capacity",
@@ -56,12 +57,15 @@ def _w(leaf, dt: torch.dtype) -> torch.Tensor:
     return leaf.to(dt)
 
 
-def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+OUT_DIMS = ("act_batch", "seq", "d_model")
+
+
+def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig, rules=None) -> torch.Tensor:
     dt = cfg.compute_dtype
     act = ACTIVATIONS[cfg.activation]
-    up = x @ _w(p["w_up"], dt)
+    up = constrain(x @ _w(p["w_up"], dt), rules, ("act_batch", "seq", "d_ff"))
     h = act(up) * (x @ _w(p["w_gate"], dt)) if cfg.glu else act(up)
-    return h @ _w(p["w_down"], dt)
+    return constrain(h @ _w(p["w_down"], dt), rules, OUT_DIMS)
 
 
 # ---------------------------------------------------------------------------
@@ -110,8 +114,12 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _router(p, flat: torch.Tensor, cfg: ArchConfig):
-    """(gate (T, K) float32, expert index (T, K), Switch-style aux loss)."""
+def _router(p, flat: torch.Tensor, cfg: ArchConfig, group=None,
+            n_shards: int = 1):
+    """(gate (T, K) float32, expert index (T, K), Switch-style aux loss).
+    ``group``: ``flat`` is one of ``n_shards`` equal blocks of the tokens,
+    whose means are summed over the group, so ``aux`` is the whole
+    batch's."""
     logits = (flat @ p["router"].to(cfg.compute_dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     gate, idx = _top_k(probs, cfg.top_k)
@@ -119,7 +127,11 @@ def _router(p, flat: torch.Tensor, cfg: ArchConfig):
     # E * sum_e fraction_e * mean_prob_e.
     frac = torch.nn.functional.one_hot(idx, cfg.n_experts).float().sum(1) \
         .mean(0) / cfg.top_k
-    aux = cfg.n_experts * torch.sum(frac * probs.mean(0))
+    mean_probs = probs.mean(0)
+    if group is not None:
+        frac = collectives.sum_forward(frac, group) / n_shards
+        mean_probs = collectives.sum_forward(mean_probs, group) / n_shards
+    aux = cfg.n_experts * torch.sum(frac * mean_probs)
     return gate, idx, aux
 
 
@@ -134,14 +146,15 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, impl: str = "cuda",
     on the card (their plain versions on the CPU), ``'ref'`` the oracles.
     ``rules`` on a bound mesh with more than one device along the experts
     axis takes the expert-parallel path (:func:`_ep_moe_fwd`); ``None``,
-    or one device there, is the portable path.
+    an abstract mesh (the dry run's global count), or one device there,
+    is the portable path.
     """
     b, s, d = x.shape
     t = b * s
     flat = x.reshape(t, d)
     ep = rules.axis("experts") if rules is not None else None
     n_ep = rules.axis_size("experts") if rules is not None else 1
-    if rules is not None and rules.mesh is not None and isinstance(ep, str) \
+    if rules is not None and rules.bound and isinstance(ep, str) \
             and n_ep > 1:
         out, aux = _ep_moe_fwd(p, flat, cfg, rules, ep, n_ep, impl)
         out = out.reshape(b, s, d)
@@ -150,12 +163,14 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, impl: str = "cuda",
         cap = moe_capacity(cfg, t)
         buf, src, keep = ops.moe_dispatch(flat, idx, cfg.n_experts, cap,
                                           impl=impl)
-        out_buf = _expert_ffn(p, buf, cfg)
+        buf = constrain(buf, rules, ("experts", "capacity", None))
+        out_buf = constrain(_expert_ffn(p, buf, cfg), rules,
+                            ("experts", "capacity", None))
         out = ops.moe_combine(out_buf, src, gate * keep, t, impl=impl)
         out = out.reshape(b, s, d)
     if cfg.dense_residual:
-        out = out + mlp_fwd(p["dense"], x, cfg)
-    return out, aux
+        out = out + mlp_fwd(p["dense"], x, cfg, rules)
+    return constrain(out, rules, OUT_DIMS), aux
 
 
 def _expert_block(leaf, m: int, e_loc: int):
@@ -168,22 +183,24 @@ def _expert_block(leaf, m: int, e_loc: int):
 
 def _ep_shard(p, tokens: torch.Tensor, gate: torch.Tensor,
               idx: torch.Tensor, cfg: ArchConfig, m: int, n_ep: int,
-              cap: int, impl: str = "cuda"
+              cap: int, impl: str = "cuda", w=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shard ``m`` of ``n_ep``'s share of the MoE output: the assignments
     to its ``E / n_ep`` experts packed with capacity ``cap`` (the others
     to the overflow expert ``e_loc``, which is dropped), its experts' FFN,
-    and the combine weighted by the kept local gates.  Returns (partial
-    output (T, D) in the compute dtype, kept (T, K): the assignments this
-    shard kept)."""
+    and the combine weighted by the kept local gates.  The experts'
+    weights are rows of ``p``'s whole expert weights, or ``w`` where the
+    caller holds the block alone.  Returns (partial output (T, D) in the
+    compute dtype, kept (T, K): the assignments this shard kept)."""
     e_loc = cfg.n_experts // n_ep
     local_idx = idx - m * e_loc
     ok = (local_idx >= 0) & (local_idx < e_loc)
     masked = torch.where(ok, local_idx, torch.full_like(local_idx, e_loc))
     buf, src, keep = ops.moe_dispatch(tokens, masked, e_loc + 1, cap,
                                       impl=impl)
-    w = {name: _expert_block(p[name], m, e_loc) for name in MLP_WEIGHT_NAMES
-         if name in p}
+    if w is None:
+        w = {name: _expert_block(p[name], m, e_loc)
+             for name in MLP_WEIGHT_NAMES if name in p}
     out_buf = _expert_ffn(w, buf[:e_loc], cfg)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1,)
                                                     + out_buf.shape[1:])])
@@ -199,29 +216,100 @@ def _ep_moe_fwd(p, flat: torch.Tensor, cfg: ArchConfig, rules, ep: str,
     """Expert-parallel MoE over the mesh axis ``ep`` (the reference's
     ``shard_map`` manual over it): flat (T, D) → (output (T, D), aux).
 
-    Every rank holds the tokens whole, as the reference's shard_map sees
-    them, and the parameters whole, as plain tensors (its experts are
-    rows of the expert weights), and routes the tokens all (the same on every rank, so ``aux`` is
-    local); its shard (:func:`_ep_shard`) packs, runs and combines its
-    own experts' assignments, with the capacity of the tokens of one
-    batch shard, as the reference computes it.  One sum over ``ep`` adds
-    the partial outputs.  The gradients of the tokens and gates that the
-    shard used are summed over ``ep`` in the backward, where the
-    reference sums the cotangents of its replicated inputs.  The sums
-    run in float32 on the CPU and in the compute dtype on the card, as
-    the reference's ``psum_dt``.
+    Plain tokens: every rank holds the tokens whole, as the reference's
+    shard_map sees them, and the parameters whole, as plain tensors (its
+    experts are rows of the expert weights), and routes the tokens all
+    (the same on every rank, so ``aux`` is local); its shard
+    (:func:`_ep_shard`) packs, runs and combines its own experts'
+    assignments, with the capacity of the tokens of one batch shard, as
+    the reference computes it.  One sum over ``ep`` adds the partial
+    outputs.  The gradients of the tokens and gates that the shard used
+    are summed over ``ep`` in the backward, where the reference sums the
+    cotangents of its replicated inputs.  The sums run in float32 off the
+    card and in the compute dtype on it, as the reference's ``psum_dt``.
+
+    DTensor tokens (sharded over the batch axes) stay on their rank, as
+    XLA partitions the reference's shard_map over its automatic data
+    axis: each rank routes, packs (with that capacity), runs and combines
+    its own block of the tokens, the router's means are summed over the
+    batch axes for ``aux``, and the output keeps the tokens' layout.  The
+    weights' gradients are then partial sums over the batch axes.
     """
     dt = cfg.compute_dtype
-    psum_dt = torch.float32 if flat.device.type == "cpu" else dt
     group = collectives.axis_group(rules.mesh, ep)
     m = collectives.axis_index(rules.mesh, ep)
-    t_shard = max(1, flat.shape[0] // max(1, rules.axis_size("batch")))
+    n_batch = max(1, rules.axis_size("batch"))
+    t_shard = max(1, flat.shape[0] // n_batch)
     cap = moe_capacity(cfg, t_shard)
+    dtensor_tokens = is_dtensor(flat)
+    batch_ax = rules.axis("batch") if n_batch > 1 else None
+    p, w = _ep_params(p, rules, ep, batch_ax if dtensor_tokens else None)
+    b_group = None
+    if dtensor_tokens:
+        from torch.distributed.tensor import DTensor
+
+        from ..parallel.sharding import placements
+
+        spec = placements((batch_ax, None), rules.mesh)
+        if tuple(flat.placements) != spec:
+            flat = flat.redistribute(rules.mesh.device_mesh, spec)
+        flat = flat.to_local()
+        if batch_ax is not None:
+            b_group = collectives.axis_group(rules.mesh, batch_ax)
+    psum_dt = torch.float32 if flat.device.type != "cuda" else dt
     tokens = flat.to(dt)
-    gate, idx, aux = _router(p, tokens, cfg)
+    gate, idx, aux = _router(p, tokens, cfg, b_group, n_batch)
     shard_tokens = collectives.sum_backward(tokens.to(psum_dt), group).to(dt)
     shard_gate = collectives.sum_backward(gate, group)
     partial, _ = _ep_shard(p, shard_tokens, shard_gate, idx, cfg, m, n_ep,
-                           cap, impl)
+                           cap, impl, w=w)
     out = collectives.sum_forward(partial.to(psum_dt), group).to(dt)
+    if dtensor_tokens:
+        dm = rules.mesh.device_mesh
+        out = DTensor.from_local(out, dm, spec, run_check=False)
+        aux = DTensor.from_local(aux, dm, placements((), rules.mesh),
+                                 run_check=False)
     return out, aux
+
+
+def _ep_params(p, rules, ep: str, partial=None):
+    """``(p, w)``: the MoE parameters as the expert-parallel shard reads
+    them.  Plain tensors pass whole (``w`` None: the shard cuts its
+    experts' rows).  DTensor parameters (``param_shardings``) come as
+    local tensors: each expert weight laid out with its experts on ``ep``
+    and every other dim whole (under fsdp d_model is gathered), its block
+    in ``w``; the router replicated.  ``partial`` (mesh axes): each rank
+    saw its own block of the tokens there, so the gradients are partial
+    sums over those axes."""
+    if not any(is_dtensor(v) for v in _leaves(p)):
+        return p, None
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dm = rules.mesh.device_mesh
+    names = rules.mesh.axis_names
+    part = (partial,) if isinstance(partial, str) else tuple(partial or ())
+
+    def layout(first):
+        spec = tuple(first if a == ep else Replicate() for a in names)
+        grad = tuple(Partial() if a in part else pl
+                     for a, pl in zip(names, spec))
+        return spec, (grad if part else None)
+
+    def local(leaf, spec, grad):
+        if isinstance(leaf, dict):
+            return {k: local(v, spec, grad) for k, v in leaf.items()}
+        if not is_dtensor(leaf):
+            return leaf
+        if tuple(leaf.placements) != spec:
+            leaf = leaf.redistribute(dm, spec)
+        return leaf.to_local(grad_placements=grad)
+
+    w = {name: local(p[name], *layout(Shard(0)))
+         for name in MLP_WEIGHT_NAMES if name in p}
+    return {**p, "router": local(p["router"], *layout(Replicate()))}, w
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]

@@ -15,7 +15,8 @@ keeps T/C x C·B·H·hd² bytes of scan residuals: the reference records
 T = 1 both forms run the same operations.  The dtypes follow the
 reference exactly: activations and the projections in
 ``cfg.compute_dtype``, the decay, the recurrence and the group-norm
-statistics in float32.  Sharding constraints are left out (no-ops here).
+statistics in float32.  ``rules`` (on a bound mesh, DTensors) constrain
+the activations where the reference does.
 
 Every block function takes the float32 parameters ``p`` and, optionally,
 ``pf``, the same tree already cast to the compute dtype: the reference
@@ -31,6 +32,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..parallel.sharding import (constrain, is_dtensor, local_call,
+                                 partial_on)
 from .common import (Param, cast_tree, decayed_cumsum, decayed_scan,
                      rms_norm)
 
@@ -108,6 +111,9 @@ def rwkv_state_specs(cfg: ArchConfig, heads: Optional[int] = None
     }
 
 
+OUT_DIMS = ("act_batch", "seq", "d_model")
+
+
 def _shift(x: torch.Tensor, x_last: Optional[torch.Tensor]) -> torch.Tensor:
     """Token shift: the previous token's activation (zeros or the carried
     one at t = 0)."""
@@ -168,12 +174,34 @@ def _ddlerp(p, x, sx):
     return out
 
 
+def _wkv_local(r, k, v, w, u, s0, chunk, rules):
+    """:func:`wkv6` on DTensors: each rank runs its batch block's heads
+    (the heads on the ``heads`` axis), and its share of u's gradient; a
+    zero state (``s0`` None) is made on the rank."""
+    tok = rules.spec(("act_batch", "seq", "heads", None))
+    st = rules.spec(("act_batch", "heads", None, None))
+    # u is the same on every batch shard: its gradient sums over them
+    grad_u = partial_on((st[1], None), rules.axis("act_batch"), rules.mesh)
+
+    def fn(r_, k_, v_, w_, u_, s_):
+        if s_ is None:
+            s_ = torch.zeros(r_.shape[:1] + r_.shape[2:3]
+                             + (HEAD_DIM, HEAD_DIM), device=r_.device)
+        return wkv6(r_, k_, v_, w_, u_, s_, chunk)
+
+    return local_call(fn, rules.mesh, (r, k, v, w, u, s0),
+                      (tok, tok, tok, tok, (st[1], None), st), [tok, st],
+                      (None, None, None, None, grad_u, None))
+
+
 def time_mix(p, x: torch.Tensor, cfg: ArchConfig,
              state: Optional[Dict[str, torch.Tensor]] = None, pf=None,
-             chunk: Optional[int] = None):
+             chunk: Optional[int] = None, rules=None):
     """x (B, T, D); state ``{'s': (B,H,hd,hd), 'x_tm': (B,D)}`` or None.
     Returns (out (B, T, D), ``{'s', 'x_tm'}``); ``chunk`` goes to
-    :func:`wkv6`."""
+    :func:`wkv6`.  On DTensors the scan runs on each rank's batch and
+    heads (:func:`_wkv_local`).  The reference's constraint of r, k and v
+    discards its result, so none is made here."""
     dt = cfg.compute_dtype
     pf = pf if pf is not None else cast_tree(p, dt)
     b = x.shape[0]
@@ -181,6 +209,12 @@ def time_mix(p, x: torch.Tensor, cfg: ArchConfig,
     x_last = None if state is None else state["x_tm"]
     sx = _shift(x, x_last) - x
     mixed = _ddlerp(pf, x, sx)
+    if is_dtensor(x):
+        # The mixes' gradients are summed over the heads axis here, so the
+        # data-dependent lerp's backward runs on every token, as XLA
+        # partitions the reference's.
+        mixed = {k: constrain(v, rules, ("act_batch", "seq", "d_model"))
+                 for k, v in mixed.items()}
 
     r = torch.einsum("bsd,dhk->bshk", mixed["r"], pf["wr"])
     k = torch.einsum("bsd,dhk->bshk", mixed["k"], pf["wk"])
@@ -191,9 +225,14 @@ def time_mix(p, x: torch.Tensor, cfg: ArchConfig,
         p["wb"].float())
     w = torch.exp(-torch.exp(w_log))
 
-    s0 = (torch.zeros((b, h, HEAD_DIM, HEAD_DIM), device=x.device)
-          if state is None else state["s"])
-    y, s_new = wkv6(r, k, v, w.to(r.dtype), p["u"], s0, chunk)
+    if is_dtensor(r):
+        y, s_new = _wkv_local(r, k, v, w.to(r.dtype), p["u"],
+                              None if state is None else state["s"], chunk,
+                              rules)
+    else:
+        s0 = (torch.zeros((b, h, HEAD_DIM, HEAD_DIM), device=x.device)
+              if state is None else state["s"])
+        y, s_new = wkv6(r, k, v, w.to(r.dtype), p["u"], s0, chunk)
 
     # Per-head group norm, statistics in float32.
     y32 = y.float()
@@ -202,11 +241,12 @@ def time_mix(p, x: torch.Tensor, cfg: ArchConfig,
     y = ((y - mu) * torch.rsqrt(var + 1e-5)).to(dt)
     y = y * (1.0 + pf["ln_g"]) * g
     out = torch.einsum("bshk,hkd->bsd", y, pf["wo"])
-    return out, {"s": s_new, "x_tm": x[:, -1]}
+    return constrain(out, rules, OUT_DIMS), {"s": s_new, "x_tm": x[:, -1]}
 
 
 def channel_mix(p, x: torch.Tensor, cfg: ArchConfig,
-                state: Optional[Dict[str, torch.Tensor]] = None, pf=None):
+                state: Optional[Dict[str, torch.Tensor]] = None, pf=None,
+                rules=None):
     """x (B, T, D); state ``{'x_cm': (B, D)}`` or None.  Returns
     (out, ``{'x_cm'}``)."""
     dt = cfg.compute_dtype
@@ -215,24 +255,29 @@ def channel_mix(p, x: torch.Tensor, cfg: ArchConfig,
     sx = _shift(x, x_last) - x
     xk = x + sx * pf["mu_k"]
     xr = x + sx * pf["mu_r"]
-    k = torch.square(torch.relu(xk @ pf["wk"]))
+    k = constrain(torch.square(torch.relu(xk @ pf["wk"])), rules,
+                  ("act_batch", "seq", "d_ff"))
     v = k @ pf["wv"]
     r = torch.sigmoid(xr @ pf["wr"])
-    return r * v, {"x_cm": x[:, -1]}
+    if is_dtensor(r):
+        # the gate gathered whole, the product's partial sums then summed
+        # once, as XLA partitions the reference's
+        r = constrain(r, rules, OUT_DIMS)
+    return constrain(r * v, rules, OUT_DIMS), {"x_cm": x[:, -1]}
 
 
 def rwkv_block(p, x: torch.Tensor, cfg: ArchConfig, norms,
                state: Optional[Dict[str, torch.Tensor]] = None, pf=None,
-               chunk: Optional[int] = None):
+               chunk: Optional[int] = None, rules=None):
     """One RWKV layer: x + TM(norm(x)); x + CM(norm(x)).  Returns
     (x, state).  ``p`` holds ``tm`` and ``cm``; ``norms`` ``ln1``/``ln2``;
     ``chunk`` goes to :func:`wkv6`."""
     pf = pf if pf is not None else cast_tree(p, cfg.compute_dtype)
     tm_out, st_tm = time_mix(p["tm"], rms_norm(x, norms["ln1"]), cfg, state,
-                             pf=pf["tm"], chunk=chunk)
+                             pf=pf["tm"], chunk=chunk, rules=rules)
     x = x + tm_out
     cm_out, st_cm = channel_mix(p["cm"], rms_norm(x, norms["ln2"]), cfg,
-                                state, pf=pf["cm"])
+                                state, pf=pf["cm"], rules=rules)
     x = x + cm_out
     return x, {**st_tm, **st_cm}
 

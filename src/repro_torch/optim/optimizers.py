@@ -167,8 +167,11 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
             if factored(p):
                 vr = b2 * s["vr"] + (1 - b2) * torch.mean(g2, dim=-1)
                 vc = b2 * s["vc"] + (1 - b2) * torch.mean(g2, dim=-2)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(torch.mean(vr, dim=-1, keepdim=True)
+                # (DTensors: both factors laid out as g, so the outer
+                # product is formed on each rank's block of g)
+                vr_g, vc_g = _as_factor(vr, g32, -1), _as_factor(vc, g32, -2)
+                denom = (vr_g[..., None] * vc_g[..., None, :]
+                         / torch.clamp(torch.mean(vr_g, dim=-1, keepdim=True)
                                        [..., None], min=1e-30))
                 pre = g32 * torch.rsqrt(denom + 1e-30)
                 s["vr"].copy_(vr)
@@ -187,6 +190,35 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
         return params, state, {"grad_norm": gnorm, "lr": lr}
 
     return Optimizer(init, update)
+
+
+def _as_factor(v, g, dim: int):
+    """A factored second moment ``v`` (``g`` with ``dim`` reduced) laid
+    out as ``g`` lays out its other dims, whole along the rest: a DTensor
+    ``g`` sharded along ``dim`` leaves ``v`` replicated on that mesh axis.
+    A plain tensor as it is."""
+    from ..parallel.sharding import is_dtensor
+
+    if not is_dtensor(v):
+        return v
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    cut = g.ndim + dim
+    want = []
+    for pl in g.placements:
+        d = getattr(pl, "dim", None)
+        if d is None or d == cut or not isinstance(pl, (Shard,
+                                                         _StridedShard)):
+            want.append(Replicate())
+        elif isinstance(pl, _StridedShard):
+            want.append(_StridedShard(d - (d > cut),
+                                      split_factor=pl.split_factor))
+        else:
+            want.append(Shard(d - (d > cut)))
+    want = tuple(want)
+    return v if tuple(v.placements) == want else v.redistribute(
+        v.device_mesh, want)
 
 
 def _leaf_states(params, state) -> list:

@@ -29,9 +29,13 @@ outermost, as ``NamedSharding`` splits it.  The fsdp rule ``('data',
 DTensor ``Shard`` over two mesh dims follows mesh order, so such a pair
 is placed with ``_StridedShard`` on the mesh's earlier axis: each device
 holds the block the reference's ``NamedSharding`` gives it.  These
-placements lay out checkpoints and the elastic reshard
-(``runtime.reshard_state``); the model's mesh paths (``mlp._ep_moe_fwd``,
-``lm._embed_lookup``) take their parameters whole, as plain tensors.
+placements lay out checkpoints, the elastic reshard
+(``runtime.reshard_state``) and the dry run's DTensor arguments; the
+model's mesh paths (``mlp._ep_moe_fwd``, ``lm._embed_lookup``) take their
+parameters whole as plain tensors or as such DTensors.  A step on
+DTensors runs the models' ``constrain`` calls, whose gradients are laid
+out by the same constraint, and their ``local_call`` regions (the
+counterpart of ``shard_map``) where an op has no sharding of its own.
 """
 from __future__ import annotations
 
@@ -48,11 +52,16 @@ __all__ = [
     "Sharding",
     "ShardingRules",
     "constrain",
+    "gather_fsdp",
+    "is_dtensor",
+    "local_call",
     "make_rules",
     "mesh_axis_size",
     "param_shardings",
     "param_specs",
+    "partial_on",
     "placements",
+    "reduce_partials",
     "shard_shape",
     "validate_divisibility",
 ]
@@ -79,6 +88,12 @@ class ShardingRules:
         if self.mesh is None:
             return 1
         return mesh_axis_size(self.mesh, self.axis(name))
+
+    @property
+    def bound(self) -> bool:
+        """Whether the mesh is bound to a process group (the mesh paths
+        run only there; an abstract mesh lays out specs alone)."""
+        return getattr(self.mesh, "device_mesh", None) is not None
 
 
 def make_rules(
@@ -189,14 +204,176 @@ def param_shardings(defs: Any, rules: ShardingRules, mesh: Any) -> Any:
 
 def constrain(x, rules: ShardingRules, dims: Sequence[Optional[str]]):
     """``x`` laid out by the rules' spec of ``dims``: a DTensor is
-    redistributed to its placements; a plain tensor, or rules without a
-    mesh, pass through, as the reference outside a jit mesh."""
+    redistributed to its placements; a plain tensor, ``rules=None`` or
+    rules without a mesh pass through, as the reference outside a jit
+    mesh."""
+    if rules is None or rules.mesh is None or not is_dtensor(x):
+        return x
+    want = placements(rules.spec(dims), rules.mesh)
+    if not x.requires_grad:
+        return x if tuple(x.placements) == want else x.redistribute(
+            rules.mesh.device_mesh, want)
+    return _Constrain.apply(x, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``want``, and its gradient laid out as
+    ``want`` first, then as the input: the transpose of the reference's
+    ``with_sharding_constraint`` is the same constraint on the cotangent,
+    so a partial gradient is summed where the reference sums it.  (Plain
+    ``redistribute`` passes the gradient on as it comes, and a partial
+    sum would flow on through the products behind it.)  A ``Partial``
+    input's gradient stays replicated there, as DTensor keeps it."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        from torch.distributed.tensor import Partial, Replicate
+
+        ctx.want, ctx.mesh = want, x.device_mesh
+        ctx.back = tuple(Replicate() if isinstance(p, Partial) else p
+                         for p in x.placements)
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(ctx.mesh, ctx.want)
+        if tuple(g.placements) != ctx.back:
+            g = g.redistribute(ctx.mesh, ctx.back)
+        return g, None
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor where no
+    process group is in use)."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
     from torch.distributed.tensor import DTensor
 
-    if rules.mesh is None or not isinstance(x, DTensor):
+    return isinstance(x, DTensor)
+
+
+def reduce_partials(x):
+    """A DTensor whose partial sums span several mesh axes (a gradient
+    over ``('pod', 'data')``) with them summed by one all-reduce over the
+    flattened group of those axes, as XLA reduces over a tuple of axes;
+    DTensor would reduce axis by axis, moving the bytes twice.  Any other
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not is_dtensor(x):
         return x
-    return x.redistribute(rules.mesh.device_mesh,
-                          placements(rules.spec(dims), rules.mesh))
+    dims = [i for i, p in enumerate(x.placements)
+            if isinstance(p, Partial) and p.reduce_op == "sum"]
+    if len(dims) < 2:
+        return x
+    import types
+
+    import torch.distributed._functional_collectives as funcol
+
+    from . import collectives
+
+    dm = x.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    mesh = types.SimpleNamespace(axis_names=names, device_mesh=dm,
+                                 shape=dict(zip(names, dm.shape)))
+    group = collectives.axis_group(mesh, tuple(names[i] for i in dims))
+    local = funcol.wait_tensor(funcol.all_reduce(x.to_local(), "sum",
+                                                 group))
+    pl = [Replicate() if i in dims else p for i, p in enumerate(x.placements)]
+    return DTensor.from_local(local, dm, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def gather_fsdp(tree: Any, rules: Optional[ShardingRules]) -> Any:
+    """A parameter tree with every DTensor leaf's fsdp shard gathered (its
+    placements on the ``fsdp`` / ``fsdp_mlp`` axes made ``Replicate``;
+    the model axis keeps its shard): the weights a ZeRO-3 step gathers
+    before it uses them, as XLA gathers the reference's, and their
+    gradients come back as a reduce-scatter.  The caller gathers the
+    stacked layers before it slices one: a slice of a ``_StridedShard``
+    leaf cannot be laid out again in every torch release.  Plain tensors,
+    and rules without fsdp, pass through."""
+    if rules is None or not rules.bound:
+        return tree
+    axes = set()
+    for name in ("fsdp", "fsdp_mlp"):
+        ax = rules.axis(name)
+        axes.update((ax,) if isinstance(ax, str) else tuple(ax or ()))
+    if not axes:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    names = rules.mesh.axis_names
+
+    def one(t):
+        if not is_dtensor(t):
+            return t
+        want = tuple(Replicate() if names[i] in axes else p
+                     for i, p in enumerate(t.placements))
+        return t if want == tuple(t.placements) else t.redistribute(
+            t.device_mesh, want)
+
+    return map_tree(one, tree)
+
+
+def partial_on(spec: Sequence[Axis], axes: Axis, mesh: Any) -> tuple:
+    """The placements of ``spec`` with ``Partial`` on the mesh axes
+    ``axes`` (an axis name, a tuple, or ``None`` for none): the layout of
+    a gradient that each rank there holds only its share of."""
+    from torch.distributed.tensor import Partial
+
+    out = list(placements(spec, mesh))
+    for a in (axes,) if isinstance(axes, str) else tuple(axes or ()):
+        out[mesh.axis_names.index(a)] = Partial()
+    return tuple(out)
+
+
+def local_call(fn, mesh: Any, args: Sequence, in_specs: Sequence,
+               out_specs: Any, grad_specs: Optional[Sequence] = None):
+    """``fn`` on one rank's blocks, the counterpart of a ``shard_map``:
+    each DTensor of ``args`` is laid out by its entry of ``in_specs`` (a
+    spec tuple, or placements) and its local block passed to ``fn``; any
+    other argument passes as it is.  ``fn``'s outputs (a tensor or a
+    tuple) become DTensors laid out by ``out_specs`` (one entry, or one an
+    output).  ``grad_specs`` gives an input's gradient placements where
+    they are not its layout (a replicated input that each rank uses for
+    its own share: ``Partial`` on those axes)."""
+    from torch.distributed.tensor import DTensor
+
+    dm = mesh.device_mesh
+
+    def pl(spec):
+        if spec is None:
+            return None
+        if spec and not isinstance(spec[0], (str, tuple, type(None))):
+            return tuple(spec)
+        return placements(spec, mesh)
+
+    local = []
+    for i, (a, spec) in enumerate(zip(args, in_specs)):
+        if not is_dtensor(a):
+            local.append(a)
+            continue
+        want = pl(spec)
+        if tuple(a.placements) != want:
+            a = a.redistribute(dm, want)
+        grad = pl(grad_specs[i]) if grad_specs is not None else None
+        local.append(a.to_local(grad_placements=grad))
+    out = fn(*local)
+
+    def wrap(t, spec):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return DTensor.from_local(t, dm, pl(spec), run_check=False)
+
+    if isinstance(out, tuple):
+        specs = out_specs if isinstance(out_specs, list) else \
+            [out_specs] * len(out)
+        return tuple(wrap(t, sp) for t, sp in zip(out, specs))
+    return wrap(out, out_specs)
 
 
 def mesh_axis_size(mesh: Any, axis: Axis) -> int:

@@ -103,7 +103,60 @@ def _worker(rank, world, work):
     (g,) = torch.autograd.grad((got ** 2).sum(), [table])
     out["emb/out"] = got.detach().numpy()
     out["emb/grad"] = collectives.psum(g, model).numpy()
+    out.update(_dtensor_params(inp, mesh, model))
     return out
+
+
+def _dtensor_params(inp, mesh, model):
+    """``_ep_moe_fwd`` and ``_embed_lookup`` with ``param_shardings``
+    DTensor parameters, fsdp off and on, against the same calls with the
+    plain tensors: the outputs, and the gradients gathered whole against
+    the plain ones summed over the model axis, as equality flags."""
+    from repro_torch.models.common import Param
+    from repro_torch.parallel.sharding import param_shardings
+
+    x = torch.tensor(inp["moe_x"])
+    ids = torch.tensor(inp["emb/ids"])
+    flags = {}
+    for fsdp in (False, True):
+        rules = make_rules(with_pod=False, batch_axes=("data",), fsdp=fsdp,
+                           mesh=mesh)
+        for tag, cf in CAPACITY.items():
+            cfg = _moe_cfg(cf)
+            plain = {k: torch.tensor(v, requires_grad=True)
+                     for k, v in _torch_dist.nest(inp, f"{tag}/moe").items()}
+            shard = param_shardings(mlp.moe_defs(cfg), rules, mesh)
+            dt = {k: shard[k].distribute(v.detach()).requires_grad_(True)
+                  for k, v in plain.items()}
+            res = {}
+            for side, p in (("plain", plain), ("dtensor", dt)):
+                o, aux = mlp.moe_fwd(p, x, cfg, rules=rules)
+                grads = torch.autograd.grad((o ** 2).sum() + aux,
+                                            list(p.values()))
+                res[side] = (o.detach(), aux.detach(), dict(zip(p, grads)))
+            (o0, a0, g0), (o1, a1, g1) = res["plain"], res["dtensor"]
+            key = f"dt/fsdp{int(fsdp)}/{tag}"
+            flags[f"{key}/out"] = torch.equal(o0, o1) and torch.equal(a0, a1)
+            for name in g0:
+                whole = g0[name] if name == "router" else collectives.psum(
+                    g0[name], model)
+                flags[f"{key}/grad/{name}"] = torch.equal(
+                    whole, g1[name].full_tensor())
+        table = torch.tensor(inp["emb/table"], requires_grad=True)
+        vocab, width, _ = EMB
+        shard = param_shardings({"embed": Param((vocab, width),
+                                                ("vocab", "d_model"))},
+                                rules, mesh)["embed"]
+        tdt = shard.distribute(table.detach()).requires_grad_(True)
+        o0 = lm._embed_lookup(table, ids, rules, torch.float32)
+        o1 = lm._embed_lookup(tdt, ids, rules, torch.float32)
+        (g0,) = torch.autograd.grad((o0 ** 2).sum(), [table])
+        (g1,) = torch.autograd.grad((o1 ** 2).sum(), [tdt])
+        key = f"dt/fsdp{int(fsdp)}/emb"
+        flags[f"{key}/out"] = torch.equal(o0, o1)
+        flags[f"{key}/grad"] = torch.equal(collectives.psum(g0, model),
+                                           g1.full_tensor())
+    return flags
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +389,24 @@ def test_sharded_embedding_gradient(runs, world):
         np.testing.assert_allclose(r["emb/grad"], expect, rtol=1e-4,
                                    atol=1e-4)
         assert _max_err(r["emb/grad"], ref["emb/grad"]) < 1e-5
+
+
+DT_KEYS = [f"dt/fsdp{f}/{t}/{part}" for f in (0, 1) for t in CAPACITY
+           for part in ("out", "grad/router", "grad/w_up", "grad/w_gate",
+                        "grad/w_down")] + [
+    f"dt/fsdp{f}/emb/{part}" for f in (0, 1) for part in ("out", "grad")]
+
+
+@pytest.mark.parametrize("world", list(MESHES))
+@pytest.mark.parametrize("key", DT_KEYS)
+def test_dtensor_params_are_bitwise_the_plain_call(runs, key, world):
+    """``param_shardings`` DTensor parameters (each expert weight laid out
+    with its experts on the model axis, d_model on the data axis under
+    fsdp; the vocab-sharded table) give the plain-tensor call's output and
+    gradients bit for bit, on every rank."""
+    _, _, ranks = _at(runs, world)
+    for r in ranks:
+        assert bool(r[key]), key
 
 
 def test_embedding_without_mesh_is_the_plain_gather():
